@@ -8,7 +8,7 @@ path tracer (dist/render.py train_step: render -> loss -> grads, with the
 scene-parameter gradient all-reduced over the device mesh by the psum
 transpose).
 
-Run (any backend; ~seconds on one TPU chip at the default size):
+Run (any backend):
     python examples/invrender.py [--res 64] [--spp 4] [--steps 80]
 """
 
@@ -32,8 +32,11 @@ def main():
 
     import jax
 
+    from pyrenderer_tpu.utils.compile_cache import use_checkout_cache
+
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+    use_checkout_cache()
 
     import jax.numpy as jnp
     import numpy as np

@@ -4,17 +4,18 @@ star: >=85% rays/s efficiency from 1 to N hosts).
 Two modes:
 
   single-process (default): shard over 1..N local devices with a (dp, sp)
-  mesh. On real multi-chip hardware run as-is; on one host set
+  mesh. On a multi-GPU host run as-is; on a CPU host set
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8
   to validate the sharded path functionally.
 
-  multi-process (--processes N --cpu-devices K): spawns N OS processes of
-  K virtual CPU devices each, joined by jax.distributed over localhost
-  (pyrenderer_tpu/dist/worker.py) — the functional stand-in for N hosts.
-  Reports Mrays/s at 1 process and N processes and the derived scaling
-  efficiency. CPU numbers are not a TPU performance statement; the
-  harness (and the collective path it exercises) is the deliverable, and
-  on a real pod the same worker runs unchanged per host.
+  multi-process (--processes N): spawns N OS processes joined by
+  jax.distributed over localhost (pyrenderer_tpu/dist/worker.py). With
+  --cpu-devices 0 each process pins itself to its own GPU (one process per
+  card); with --cpu-devices K > 0 each gets K virtual CPU devices instead,
+  the functional stand-in. Reports Mrays/s at 1 process and N processes
+  and the derived scaling efficiency. CPU numbers say nothing about GPU
+  performance; there the harness (and the collective path it exercises)
+  is the deliverable.
 
 Prints a table of configuration vs Mrays/s and parallel efficiency.
 """
@@ -80,7 +81,7 @@ def run_processes(n_proc: int, cpu_devices: int, res: int, spp: int,
                 sys.executable, "-m", "pyrenderer_tpu.dist.worker", SCENE,
                 "--coordinator", f"localhost:{port}",
                 "--num-processes", str(n_proc), "--process-id", str(pid),
-                "--cpu-devices", str(cpu_devices),
+                "--cpu-devices", str(cpu_devices),  # 0: one GPU per process
                 "--res", str(res), "--spp", str(spp), "--depth", str(depth),
                 "--reps", str(reps),
             ]
@@ -154,13 +155,12 @@ def single_process_table(args):
     for n in counts:
         mesh = make_mesh(n, dp=n, sp=1)
         f = jax.jit(render_field_sharded, static_argnames=("cfg", "mesh"))
-        out = f(scene, camera, cfg, mesh, px, py)
-        float(jnp.asarray(out).sum())  # compile+sync
-        t0 = time.time()
+        jax.block_until_ready(f(scene, camera, cfg, mesh, px, py))  # compile
+        t0 = time.perf_counter()
         for _ in range(args.reps):
             out = f(scene, camera, cfg, mesh, px, py)
-        float(jnp.asarray(out).sum())
-        dt = (time.time() - t0) / args.reps
+        jax.block_until_ready(out)
+        dt = (time.perf_counter() - t0) / args.reps
         rows.append((n, approx_rays / dt / 1e6, dt))
 
     base = rows[0][1]
@@ -176,7 +176,8 @@ def main():
     p.add_argument("--processes", type=int, default=0,
                    help="multi-process mode: number of worker processes")
     p.add_argument("--cpu-devices", type=int, default=4,
-                   help="virtual CPU devices per process (multi-process mode)")
+                   help="virtual CPU devices per process (multi-process "
+                        "mode); 0 pins each process to its own GPU")
     p.add_argument("--res", type=int,
                    default=int(os.environ.get("SCALE_RES", "256")))
     p.add_argument("--spp", type=int,

@@ -14,11 +14,11 @@ Re-designs the reference's two BVHs for flat arrays:
     1 + 2*gamma(3)`; mathematics/bbox.py:6-26).
 
 Build runs on host NumPy at scene-load time (it is part of scene I/O, like
-the reference's World.commit); traversal is JAX. For small scenes the
-brute-force Pallas kernel wins on TPU (no divergence, triangles in SMEM);
+the reference's World.commit); traversal is JAX. Small scenes take the
+whole-table path instead (no divergence, the table stays in cache);
 core/integrator.py resolve_backend picks this path past AUTO_BRUTE_MAX_TRIS
 when a FlatBVH was prebuilt, and render_image / ProgressiveRenderer build
-one automatically (core/integrator.py maybe_build_bvh).
+one automatically (core/integrator.py maybe_build_accel).
 """
 
 from __future__ import annotations
@@ -236,21 +236,23 @@ def traverse(bvh: FlatBVH, tri_v0, tri_e1, tri_e2, ro, rd, t0, t1, any_hit=False
                     tri_best = jnp.where(ok, tj, tri_best)
                 return t_best, tri_best
 
+            # a select, not lax.cond: under vmap a batched cond becomes a
+            # select anyway, and a select keeps shard_map's varying-axes
+            # typing (check_vma) consistent between the two branches
             do_leaf = is_leaf & hit_box
-            t_best, tri_best = jax.lax.cond(
-                do_leaf, leaf_tests, lambda c: c, (t_best, tri_best)
-            )
+            t_leaf, tri_leaf = leaf_tests((t_best, tri_best))
+            t_best = jnp.where(do_leaf, t_leaf, t_best)
+            tri_best = jnp.where(do_leaf, tri_leaf, tri_best)
             # next node: into child if inner box hit, else escape
             cur = jnp.where(hit_box & (~is_leaf), cur + 1, bvh.escape[cur])
             done = done | (any_hit & (tri_best >= 0))
             return cur, t_best, tri_best, done
 
-        init = (
-            jnp.int32(0),
-            jnp.asarray(jnp.inf, ro.dtype),
-            jnp.int32(-1),
-            jnp.bool_(False),
-        )
+        # carries derive from the ray (not fresh constants) so that under
+        # shard_map they inherit the ray's mesh-varying type
+        zero = o[0] * 0
+        izero = zero.astype(jnp.int32)
+        init = (izero, zero + jnp.inf, izero - 1, zero != 0)
         cur, t_best, tri_best, _ = jax.lax.while_loop(cond, body, init)
         return t_best, tri_best
 

@@ -1,6 +1,6 @@
 """Analytic-primitive path tracer: spheres, planes, oriented AABBs.
 
-The TPU-native counterpart of the reference's standalone analytic renderer
+The wavefront counterpart of the reference's standalone analytic renderer
 (reference taichi_ref.py — a single self-contained file, deliberately
 outside the Tungsten scene pipeline; this module mirrors that separation).
 It reproduces, as one wavefront `lax.scan` program:
@@ -148,11 +148,13 @@ def intersect_aabb_transformed(ro, rd, bmin, bmax, m_inv, m_inv_t):
     transpose (taichi_ref.py:193-210)."""
     m_inv = jnp.asarray(m_inv, ro.dtype)
     m_inv_t = jnp.asarray(m_inv_t, ro.dtype)
-    o_l = ro @ m_inv[:3, :3].T + m_inv[:3, 3]
-    d_l = rd @ m_inv[:3, :3].T
+    # HIGHEST: an f32 product may otherwise run in TF32 on the GPU
+    hi = jax.lax.Precision.HIGHEST
+    o_l = jnp.matmul(ro, m_inv[:3, :3].T, precision=hi) + m_inv[:3, 3]
+    d_l = jnp.matmul(rd, m_inv[:3, :3].T, precision=hi)
     hit, t, _, n_l = intersect_aabb(o_l, d_l, bmin, bmax)
     hit = hit & (t > 0)
-    n_w = n_l @ m_inv_t[:3, :3].T
+    n_w = jnp.matmul(n_l, m_inv_t[:3, :3].T, precision=hi)
     return hit, jnp.where(hit, t, INF), n_w
 
 

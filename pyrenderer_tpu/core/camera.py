@@ -11,6 +11,7 @@ to follow the CPU camera.)
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 from pyrenderer_tpu import rng
@@ -69,9 +70,12 @@ def generate_rays(camera: Camera, pixel_x, pixel_y, sample_id, seed: int,
 
     rot = camera.iview[:3, :3]  # row-vector: world = cam_vec @ iview
     trans = camera.iview[3, :3]
-    rd = (d_cam - o_cam) @ rot
+    # HIGHEST: an f32 product may otherwise run in TF32 on the GPU, which
+    # moves rays by ~1e-3 relative
+    hi = jax.lax.Precision.HIGHEST
+    rd = jnp.matmul(d_cam - o_cam, rot, precision=hi)
     rd = rd / jnp.linalg.norm(rd, axis=-1, keepdims=True)
-    ro = o_cam @ rot + trans
+    ro = jnp.matmul(o_cam, rot, precision=hi) + trans
     return ro, rd
 
 
@@ -79,11 +83,11 @@ def morton_pixel_order(w: int, h: int):
     """Permutation putting flattened row-major pixels into Morton (Z-curve)
     order, and its inverse. NumPy, host-side, computed once per resolution.
 
-    Why: the wavefront backends process rays in 128-ray tiles; in row-major
-    order a tile is a 1x128 scanline sliver whose frustum crosses many
-    acceleration-structure nodes, while a Morton tile is a ~12x11 screen
-    block — the cull masks of kernels/pallas_cluster.py agree far more
-    often. Ordering is invisible to the estimator (the RNG is keyed on
+    Why: the GPU runs consecutive rays together (a warp, a kernel
+    program); in row-major order a run of 128 rays is a 1x128 scanline
+    sliver whose frustum crosses many acceleration-structure nodes, while
+    a Morton run is a ~12x11 screen block whose rays walk similar BVH
+    paths. Ordering is invisible to the estimator (the RNG is keyed on
     pixel id, not trace order).
 
     Returns (perm, inv_perm), both (w*h,) int64 with
@@ -120,10 +124,8 @@ def hilbert_pixel_order(w: int, h: int):
     level) on the next-pow2 square; arbitrary w x h handled by argsort
     of the valid cells' indices, like morton_pixel_order.
 
-    Measured on chip (round 5): within noise of Morton end-to-end — the
-    sweep's tile unions are bounded by the 128-tile's AREA, which both
-    curves already make compact; kept selectable via
-    PYRENDERER_PIXEL_ORDER for locality experiments.
+    Kept selectable via PYRENDERER_PIXEL_ORDER for locality experiments;
+    not measured against Morton on the GPU.
     """
     import numpy as np
 

@@ -1,25 +1,22 @@
 """Wavefront path-tracing integrator: `lax.scan` over bounces on SoA buffers.
 
-This is the TPU-native replacement for the reference's divergent per-pixel
+This is the data-parallel replacement for the reference's divergent per-pixel
 megakernel (reference core/tracing.py:117 PathTracer.trace, launched from
 main_taichi.py:89). The reference defined SoA ray/hit buffers but never used
 them (core/ray_taichi.py:10-75) — here they are the design: every bounce is
 one batched intersection + shading step over the whole wavefront, with
 terminated lanes masked instead of diverging.
 
-TPU-first details:
-- intersection backends: "pallas" (fused VMEM kernel, default on TPU),
-  "cluster_binned" (opt-in sort-binned traversal, kernels/pallas_binned.py),
-  "cluster_streamed" (HBM-streamed binned leaves — auto-selected for
-  scenes past the ~14.5 MiB VMEM budget that caps the resident kernels),
-  "matmul" (MXU bilinear-form formulation), "brute" (broadcast VPU,
-  default on CPU / the correctness oracle), "watertight" (PBRT shear
-  test, core/watertight.py — no shared-edge leaks), "cluster"/"bvh"
-  (accelerated large-scene structures, auto-selected past
-  AUTO_BRUTE_MAX_TRIS);
-- per-hit shading data comes from ONE (N, 16) gather of a packed per-face
-  table (v0|e1|e2|albedo|sign|emissive|sided) — scattered small gathers are
-  ~5x slower on TPU;
+Details:
+- intersection backends: "pallas" (fused whole-table Pallas kernel,
+  kernels/pallas_intersect.py; the GPU default for small scenes), "brute"
+  (broadcast XLA path; the default on CPU and the correctness oracle),
+  "matmul" (bilinear-form formulation as one matrix product), "watertight"
+  (PBRT shear test, core/watertight.py — no shared-edge leaks), and "bvh"
+  (accel/bvh.py, auto-selected past AUTO_BRUTE_MAX_TRIS);
+- per-hit shading data comes from ONE (N, 16) row gather of a packed
+  per-face table (v0|e1|e2|albedo|sign|emissive|sided) instead of many
+  scattered small gathers;
 - paired RNG draws: one threefry evaluation yields two uniforms.
 
 Estimator modes (cfg.estimator):
@@ -55,7 +52,6 @@ import jax.numpy as jnp
 from pyrenderer_tpu import rng
 from pyrenderer_tpu.config import RenderConfig
 from pyrenderer_tpu.core import intersect as isect
-from pyrenderer_tpu.core import lut
 from pyrenderer_tpu.core import sampling
 from pyrenderer_tpu.core.camera import generate_rays
 from pyrenderer_tpu.core.sampling import INV_PI
@@ -77,143 +73,55 @@ def _safe_normalize(v):
     return sampling.safe_normalize(v)
 
 
-# Largest triangle count routed to the whole-table intersection paths by
-# default. Above it the (9, T) SMEM operand of the fused Pallas kernel (and
-# the O(N*T) work of every brute path) stops being the right tool; auto
-# selection switches to an accelerated backend — "cluster" (the lockstep
-# supercluster sweep, kernels/pallas_cluster.py) on TPU, "bvh" (stackless
-# escape-pointer traversal) on CPU — prebuilt on host by maybe_build_accel.
-# Chip-validated crossover (perf/RESULTS.md round 4): at 3,852 tris the
-# whole-table kernel still wins (11.1 vs 10.1 Mrays/s end-to-end); at
-# 8,204 the cluster sweep wins 2.2x (6.14 vs 2.75).
-AUTO_BRUTE_MAX_TRIS = 4096
+# Largest triangle count that backend="auto" routes to the whole-table
+# path, per platform. Above it "bvh" (stackless escape-pointer traversal,
+# accel/bvh.py) takes over, prebuilt on host by maybe_build_accel.
+# gpu: measured end to end through render_image on one NVIDIA H100 80GB
+#   HBM3 (700 W power limit), procgen terrain at 512^2 / 4 spp, whole-
+#   table kernel vs bvh: 4,062 tris 0.12 vs 0.47 s, 8,204 tris 0.23 vs
+#   0.52 s, 16,212 tris 0.45 vs 0.56 s (PERF.md). The kernel grows
+#   linearly and bvh barely, so they cross near 20k tris; 16,384 is the
+#   largest power of two below the last measured kernel win.
+# cpu: not measured; the CPU serves tests, and the cap keeps brute's
+#   (N, T) temporaries small there.
+AUTO_BRUTE_MAX_TRIS = {"gpu": 16384, "cpu": 4096}
 
 
-# cluster_sort="auto" sorts wavefronts only for scenes of at least this
-# many 128-triangle clusters (~32k triangles). Chip-measured crossover
-# (perf/RESULTS.md round 4): the ~6 ms/query sort glue loses on terrain8k
-# (64 clusters, 1.34x faster unsorted) and wins on terrain100k/blob82k.
-AUTO_SORT_MIN_CLUSTERS = 256
-
-
-def _cluster_impl_binned() -> bool:
-    """Opt-in alternative cluster traversal (PYRENDERER_CLUSTER_IMPL=binned,
-    or backend="cluster_binned" explicitly): the sort-binned pair kernel of
-    kernels/pallas_binned.py. Chip-measured at parity with the tile sweep
-    on shuffled bounce wavefronts (without needing any coherence sort) but
-    ~1.7x slower on coherent ones, so the sweep stays the default — kept
-    wired for re-evaluation, like the integrator-level wavefront sort
-    (perf/RESULTS.md design experiments). The env var is honored by
-    resolve_backend, which render_image runs BEFORE entering jit so the
-    concrete backend lands in render_block's static cache key (an env read
-    at trace time alone would be silently ignored on cache hits)."""
-    import os
-
-    return os.environ.get("PYRENDERER_CLUSTER_IMPL", "") == "binned"
-
-
-def resolve_cluster_sort(cfg: RenderConfig, accel) -> bool:
-    """Concrete sort decision for a cluster query ("auto" -> by scene
-    size; chunked scenes -> off). For ClusterChunks the per-query
-    coherence sort runs once but each chunk re-pays its benefit setup
-    while the sorted-order gain dilutes over k prepasses — chip A/B
-    (round 5, end-to-end, 2^18-ray chunks): terrain330k 1.46 nosort vs
-    1.31 sorted, terrain500k 1.25 vs 0.97 -> auto = no sort for chunks.
-    Re-measured at the round-5 2^16-ray dispatch default: scale-
-    dependent and within ~5-7% both ways (330k 1.47 vs 1.51-1.54
-    sorted, 500k 1.35 vs 1.26 sorted) — nosort kept: simpler and better
-    at the largest scale."""
-    if cfg.cluster_sort == "auto":
-        from pyrenderer_tpu.accel.clusters import ClusterChunks
-
-        if isinstance(accel, ClusterChunks):
-            return False
-        return accel is not None and accel.n_clusters >= AUTO_SORT_MIN_CLUSTERS
-    return bool(cfg.cluster_sort)
-
-
-def resolve_cluster_watertight(cfg: RenderConfig, accel) -> bool:
-    """Concrete watertight-leaf decision ("auto" -> leak-free PBRT shear
-    leaves for big meshes, plain Moeller-Trumbore below). The size
-    threshold reuses AUTO_SORT_MIN_CLUSTERS (~32k tris): chip-measured
-    round 5, the watertight leaf costs 1.29x end-to-end on terrain100k
-    (under the 1.3x default-flip bar) but 1.65x on terrain8k — and
-    shared-edge leaks are a dense-mesh failure mode in the first place
-    (the reference's watertight test, intersection_taichi.py:94-161,
-    exists for exactly that class). The reference DEFAULTS to the leaky
-    fast test everywhere; this default is strictly safer."""
-    if cfg.cluster_watertight == "auto":
-        return accel is not None and accel.n_clusters >= AUTO_SORT_MIN_CLUSTERS
-    return bool(cfg.cluster_watertight)
+def auto_brute_max_tris() -> int:
+    """AUTO_BRUTE_MAX_TRIS of the running platform."""
+    return AUTO_BRUTE_MAX_TRIS[jax.default_backend()]
 
 
 def default_backend() -> str:
-    """Platform default with no scene knowledge (small-scene assumption)."""
-    return "pallas" if jax.default_backend() == "tpu" else "brute"
-
-
-def accel_backend() -> str:
-    """Platform default for scenes past AUTO_BRUTE_MAX_TRIS."""
-    return "cluster" if jax.default_backend() == "tpu" else "bvh"
+    """Whole-table backend of the running platform: the fused Pallas
+    kernel on the GPU, the broadcast XLA path everywhere else."""
+    return "pallas" if jax.default_backend() == "gpu" else "brute"
 
 
 def resolve_backend(backend: str, n_tris: int, accel=None) -> str:
     """Turn "auto" into a concrete backend for a scene of `n_tris` faces.
 
-    Small scenes: the fused whole-table kernels win (no divergence,
-    triangles resident on-chip). Large scenes: the accelerated backend
-    matching the prebuilt structure (render_image / ProgressiveRenderer
-    build one automatically via maybe_build_accel), else fall back to the
-    whole-table path (correct, just O(T)) — with a loud warning, because at
-    ~100k triangles the whole-table kernels' (9, T) SMEM operand will
-    refuse to compile with no hint of the real cause."""
-    if backend in ("cluster", "cluster_chunked"):
-        from pyrenderer_tpu.accel.clusters import ClusterChunks
-
-        if isinstance(accel, ClusterChunks):
-            # maybe_build_accel splits oversize scenes into chunks even
-            # under an explicit "cluster" request — the monolithic sweep
-            # cannot compile for them
-            return "cluster_chunked"
-        if backend == "cluster" and _cluster_impl_binned():
-            return "cluster_binned"
-        return "cluster"
+    Small scenes: the platform's whole-table path (default_backend).
+    Large scenes: "bvh" over the prebuilt accelerator (render_image and
+    ProgressiveRenderer build one automatically via maybe_build_accel),
+    else the whole-table path, which is correct but O(T), with a loud
+    warning. Explicit backend strings pass through unchanged."""
     if backend != "auto":
         return backend
-    if n_tris <= AUTO_BRUTE_MAX_TRIS or accel is None:
-        if n_tris > AUTO_BRUTE_MAX_TRIS:
-            import warnings
-
-            warnings.warn(
-                f"backend='auto' with {n_tris} triangles but no prebuilt "
-                "accelerator: falling back to the O(T) whole-table path. "
-                "Build one with core.integrator.maybe_build_accel(scene, "
-                "'auto') and pass it as accel=... (render_image and "
-                "ProgressiveRenderer do this automatically).",
-                stacklevel=2,
-            )
+    if n_tris <= auto_brute_max_tris():
         return default_backend()
-    from pyrenderer_tpu.accel.clusters import ClusterChunks, ClusterScene
+    if accel is None:
+        import warnings
 
-    if isinstance(accel, ClusterChunks):
-        # VMEM-oversize scene pre-split into resident chunks: the
-        # sequential chunked sweep beats the HBM-streamed path 2.9-4.1x
-        # (perf/chunkedsweep.py, chip) — the capacity default
-        return "cluster_chunked"
-    if isinstance(accel, ClusterScene):
-        b = "cluster_binned" if _cluster_impl_binned() else "cluster"
-        if jax.default_backend() == "tpu":
-            from pyrenderer_tpu.kernels.pallas_cluster import scene_fits_vmem
-
-            kind = "binned" if b == "cluster_binned" else "sweep"
-            if not scene_fits_vmem(accel, kind):
-                # a MONOLITHIC oversize ClusterScene (caller-built): the
-                # resident kernels cannot compile — route to the
-                # HBM-streamed binned traversal, which has no scene
-                # ceiling. (maybe_build_accel builds ClusterChunks for
-                # oversize scenes instead, which routes above.)
-                return "cluster_streamed"
-        return b
+        warnings.warn(
+            f"backend='auto' with {n_tris} triangles but no prebuilt "
+            "accelerator: falling back to the O(T) whole-table path. "
+            "Build one with core.integrator.maybe_build_accel(scene, "
+            "'auto') and pass it as accel=... (render_image and "
+            "ProgressiveRenderer do this automatically).",
+            stacklevel=2,
+        )
+        return default_backend()
     return "bvh"
 
 
@@ -298,9 +206,9 @@ def pack_light_data(scene: Scene, use_emission: bool):
 class TraceTables(object):
     """Per-scene device tables shared across samples/passes of one jit.
 
-    backends "bvh" / "cluster" require a prebuilt accelerator (accel/bvh.py
-    build_bvh / accel/clusters.py build_clusters run on concrete host
-    arrays — topology can't be traced) passed as `accel`.
+    backend "bvh" requires a prebuilt accelerator (accel/bvh.py build_bvh
+    runs on concrete host arrays: topology can't be traced) passed as
+    `accel`.
 
     backend "custom" (built via TraceTables.custom) routes intersection and
     per-face shading fetches through caller-supplied closures — the hook the
@@ -331,10 +239,11 @@ class TraceTables(object):
         return self
 
     def fetch_face(self, tri):
-        """Packed shading row per hit id (one-hot MXU fetch by default)."""
+        """Packed shading row per hit id (a row gather; its cotangent is a
+        scatter-add into the table, so grads reach the scene)."""
         if self.fetch_face_fn is not None:
             return self.fetch_face_fn(tri)
-        return lut.fetch_rows(self.face_data, tri)
+        return jnp.take(self.face_data, tri, axis=0)
 
     def __init__(self, scene: Scene, cfg: RenderConfig, backend: str, accel=None):
         backend = resolve_backend(backend, scene.faces.shape[0], accel)
@@ -348,23 +257,21 @@ class TraceTables(object):
             self.tri_table = pk.pack_triangles(sg(scene.vertices), scene.faces)
         elif backend == "matmul":
             self.tri_table = isect.build_tri_matrix(scene)
-        elif backend in ("bvh", "cluster", "cluster_binned",
-                         "cluster_streamed", "cluster_chunked"):
+        elif backend == "bvh":
             if accel is None:
                 raise ValueError(
-                    f"backend='{backend}' needs a prebuilt accelerator "
-                    "(core.integrator.maybe_build_accel / accel.bvh.build_bvh"
-                    " / accel.clusters.build_clusters) passed as accel=..."
+                    "backend='bvh' needs a prebuilt accelerator "
+                    "(core.integrator.maybe_build_accel / accel.bvh.build_bvh)"
+                    " passed as accel=..."
                 )
-            if backend == "bvh":
-                v = sg(scene.vertices)
-                ordered = scene.faces[accel.order]
-                self.bvh_v0 = v[ordered[:, 0]]
-                self.bvh_e1 = v[ordered[:, 1]] - self.bvh_v0
-                self.bvh_e2 = v[ordered[:, 2]] - self.bvh_v0
+            v = sg(scene.vertices)
+            ordered = scene.faces[accel.order]
+            self.bvh_v0 = v[ordered[:, 0]]
+            self.bvh_e1 = v[ordered[:, 1]] - self.bvh_v0
+            self.bvh_e2 = v[ordered[:, 2]] - self.bvh_v0
 
 
-def _closest(scene, tables, cfg, ro, rd, t1, sort=None):
+def _closest(scene, tables, cfg, ro, rd, t1):
     b = tables.backend
     if b == "custom":
         return tables.closest_fn(ro, rd, t1)
@@ -379,31 +286,6 @@ def _closest(scene, tables, cfg, ro, rd, t1, sort=None):
             tables.accel, tables.bvh_v0, tables.bvh_e1, tables.bvh_e2,
             ro, rd, cfg.t_min, t1,
         )
-    if b in ("cluster_binned", "cluster_streamed"):
-        from pyrenderer_tpu.kernels import pallas_binned as pb
-
-        # exact_t=False: the integrator re-derives hit geometry from the
-        # face id differentiably (see the trace body), so the packed-t
-        # rounding never reaches anything and the 9-gather re-derivation
-        # would be pure overhead on the hot path
-        return pb.closest_hit(tables.accel, ro, rd, cfg.t_min, t1,
-                              watertight=resolve_cluster_watertight(
-                                  cfg, tables.accel),
-                              streamed=(b == "cluster_streamed"),
-                              exact_t=False)
-    if b in ("cluster", "cluster_chunked"):
-        from pyrenderer_tpu.kernels import pallas_cluster as pc
-
-        fn = pc.closest_hit_chunked if b == "cluster_chunked" else \
-            pc.closest_hit
-        return fn(
-            tables.accel, ro, rd, cfg.t_min, t1,
-            sort=resolve_cluster_sort(cfg, tables.accel) if sort is None
-            else sort,
-            watertight=resolve_cluster_watertight(cfg, tables.accel),
-            rounds=cfg.cluster_rounds,
-            budget=cfg.cluster_budget,
-            exact_t=False)  # integrator re-derives from the face id
     if b == "watertight":
         from pyrenderer_tpu.core.watertight import intersect_watertight
 
@@ -411,7 +293,7 @@ def _closest(scene, tables, cfg, ro, rd, t1, sort=None):
     return isect.intersect_brute(scene, ro, rd, cfg.t_min, t1)
 
 
-def _any_hit(scene, tables, cfg, ro, rd, t1, sort=None):
+def _any_hit(scene, tables, cfg, ro, rd, t1):
     b = tables.backend
     if b == "custom":
         return tables.any_hit_fn(ro, rd, t1)
@@ -427,22 +309,6 @@ def _any_hit(scene, tables, cfg, ro, rd, t1, sort=None):
             ro, rd, cfg.t_min, t1, any_hit=True,
         )
         return hit
-    if b in ("cluster_binned", "cluster_streamed"):
-        from pyrenderer_tpu.kernels import pallas_binned as pb
-
-        return pb.occluded(tables.accel, ro, rd, cfg.t_min, t1,
-                           watertight=resolve_cluster_watertight(
-                               cfg, tables.accel),
-                           streamed=(b == "cluster_streamed"))
-    if b in ("cluster", "cluster_chunked"):
-        from pyrenderer_tpu.kernels import pallas_cluster as pc
-
-        fn = pc.occluded_chunked if b == "cluster_chunked" else pc.occluded
-        return fn(
-            tables.accel, ro, rd, cfg.t_min, t1,
-            sort=resolve_cluster_sort(cfg, tables.accel) if sort is None
-            else sort,
-            watertight=resolve_cluster_watertight(cfg, tables.accel))
     if b == "watertight":
         from pyrenderer_tpu.core.watertight import occluded_watertight
 
@@ -467,7 +333,7 @@ def _sample_light_point(scene, tables, pixel_id, sample_id, bounce, seed, dtype)
     nf = scene.light_nfaces[li].astype(dtype)
     uf = rng.uniform(seed, pixel_id, sample_id, bounce, rng.U_LIGHT_FACE, dtype)
     fi = jnp.clip((uf * nf).astype(jnp.int32), 0, scene.light_nfaces[li] - 1)
-    row = lut.fetch_rows(tables.light_data, li * f_max + fi)  # (N, 16)
+    row = jnp.take(tables.light_data, li * f_max + fi, axis=0)  # (N, 16)
     v0, v1, v2 = row[:, 0:3], row[:, 3:6], row[:, 6:9]
     em = row[:, 9:12]
     sign = row[:, 12]
@@ -476,44 +342,6 @@ def _sample_light_point(scene, tables, pixel_id, sample_id, bounce, seed, dtype)
     p2 = sampling.sample_triangle_point(v0, v1, v2, u, v)
     n2 = sign[:, None] * _safe_normalize(jnp.cross(v1 - v0, v2 - v0))
     return p2, n2, em, pdf_a
-
-
-def use_wavefront_sort(tables, cfg) -> bool:
-    """True when the integrator should sort the WHOLE wavefront state once
-    per bounce (cluster backend) instead of letting each cluster query sort
-    its own inputs.
-
-    Theory said this should win (one argsort instead of two, shadow rays
-    inherit the bounce order, dead lanes compact to the tile tail);
-    the chip said otherwise: the full-state permutation (9 carried arrays
-    per bounce inside the scan) measured ~33 ms/bounce at 262k rays —
-    ~2.5x the per-query sort glue it replaced — and regressed terrain8k
-    4.6 -> 2.65 Mrays/s end-to-end (perf/RESULTS.md round 4). Isolated
-    gather microbenchmarks (~1.5 ms per (N, 3) gather) badly underpredict
-    the in-scan cost. Kept as an opt-in (PYRENDERER_WF_SORT=1) for future
-    re-evaluation; default is the measured-faster per-query sorting.
-    """
-    import os
-
-    if os.environ.get("PYRENDERER_WF_SORT", "0") != "1":
-        return False
-    return tables.backend == "cluster" and resolve_cluster_sort(
-        cfg, tables.accel)
-
-
-def wavefront_sort_perm(accel, ro, rd, alive):
-    """(N,) permutation: live rays in coherence-key order, dead lanes last.
-
-    Keys are accel/clusters.sort_keys (origin-Morton major | quantized
-    direction); dead lanes get the max key, so after sorting whole trailing
-    tiles are dead and the cluster kernel's t1 = 0 cull retires them in the
-    prepass. jnp.argsort is stable: equal-key rays keep their previous
-    relative order (bounce-over-bounce incremental coherence)."""
-    from pyrenderer_tpu.accel.clusters import sort_keys
-
-    keys = sort_keys(accel, sg(ro), sg(rd))
-    keys = jnp.where(alive, keys, jnp.uint32(0xFFFFFFFF))
-    return jnp.argsort(keys)
 
 
 def trace_reference(
@@ -535,46 +363,31 @@ def trace_reference(
     (radiance, rays_traced) when with_stats — rays_traced counts closest-hit
     rays for live lanes plus NEE shadow rays (the honest Mrays/s numerator;
     masked-dead lanes are excluded even though the SIMD work still happens).
-
-    With the cluster backend the whole wavefront STATE is re-sorted once
-    per bounce (see use_wavefront_sort): pixel ids travel with their lanes
-    (the RNG is keyed on them, so per-pixel radiance is bit-identical) and
-    the final radiance is scattered back to the caller's lane order.
     """
     dtype = ro.dtype
     if tables is None:
         tables = TraceTables(scene, cfg, backend)
-    wf_sort = use_wavefront_sort(tables, cfg)
     n = ro.shape[0]
-    pixel_arr = jnp.broadcast_to(pixel_id, (n,)).astype(jnp.uint32)
-    sample_arr = jnp.broadcast_to(sample_id, (n,)).astype(jnp.uint32)
+    pixel_id = jnp.broadcast_to(pixel_id, (n,)).astype(jnp.uint32)
+    sample_id = jnp.broadcast_to(sample_id, (n,)).astype(jnp.uint32)
 
     light_color = jnp.asarray(REF_LIGHT_COLOR, dtype)
 
     def bounce_step(state, bounce):
-        if wf_sort:
-            (ro, rd, beta, radiance, alive, n_rays,
-             pixel_id, sample_id, orig) = state
-            p = wavefront_sort_perm(tables.accel, ro, rd, alive)
-            ro, rd, beta, radiance, alive = (
-                ro[p], rd[p], beta[p], radiance[p], alive[p])
-            pixel_id, sample_id, orig = pixel_id[p], sample_id[p], orig[p]
-        else:
-            ro, rd, beta, radiance, alive, n_rays = state
-            pixel_id, sample_id, orig = pixel_arr, sample_arr, None
+        ro, rd, beta, radiance, alive, n_rays = state
         alive_in = alive
         n_rays = n_rays + jnp.sum(alive, dtype=jnp.float32)
 
         # dead lanes trace with t1 = 0: every result is masked by `alive`
         # below anyway, and a zero interval lets the accelerated backends
-        # (cluster/bvh) cull their box tests instead of re-walking stale rays
+        # (bvh, the any-hit kernel) cull their work instead of re-walking
+        # stale rays
         t_clip = jnp.where(alive, jnp.asarray(cfg.t_max, dtype), 0.0)
-        hit, _, tri = _closest(scene, tables, cfg, ro, rd, t_clip,
-                               sort=False if wf_sort else None)
+        hit, _, tri = _closest(scene, tables, cfg, ro, rd, t_clip)
         tri = sg(jnp.maximum(tri, 0))
         hit = sg(hit)
 
-        # One packed-row fetch (one-hot matmul — see core/lut.py); then
+        # One packed-row fetch; then
         # differentiable re-evaluation of the selected triangle's geometry
         # (the selection itself is detached).
         row = tables.fetch_face(tri)
@@ -638,8 +451,7 @@ def trace_reference(
         dist = jnp.sqrt(dist_sq)
         w = to_light / dist[:, None]
         shadow_t1 = jnp.where(alive, sg(dist) * (1.0 - cfg.shadow_eps), 0.0)
-        occ = _any_hit(scene, tables, cfg, sg(p), sg(w), shadow_t1,
-                       sort=False if wf_sort else None)
+        occ = _any_hit(scene, tables, cfg, sg(p), sg(w), shadow_t1)
         n_rays = n_rays + jnp.sum(alive, dtype=jnp.float32)
         dot1 = _dot(nrm, w)
         dot2 = _dot(n2, -w)
@@ -661,18 +473,7 @@ def trace_reference(
                 radiance=radiance, nee_visible=(~occ) & alive,
                 light_point=p2,
             )
-            if orig is not None:
-                # records are in this bounce's sorted order; scatter each
-                # back to the caller's lane order so consumers see a stable
-                # per-pixel layout across bounces
-                ys = {k: jnp.zeros_like(v).at[orig].set(v)
-                      for k, v in ys.items()}
-        if wf_sort:
-            out = (ro, rd, beta, radiance, alive, n_rays,
-                   pixel_id, sample_id, orig)
-        else:
-            out = (ro, rd, beta, radiance, alive, n_rays)
-        return out, ys
+        return (ro, rd, beta, radiance, alive, n_rays), ys
 
     # Carries are derived from `ro` (not fresh constants) so that under
     # shard_map they inherit the mesh-varying type the scan body produces.
@@ -685,21 +486,10 @@ def trace_reference(
         zeros[:, 0] == 0,                       # alive (all True)
         jnp.sum(zeros[:, 0]).astype(jnp.float32),  # n_rays
     )
-    if wf_sort:
-        # orig derives from ro so it carries the same varying-manual-axes
-        # type as the permuted body output under shard_map
-        orig0 = jnp.arange(n, dtype=jnp.int32) + zeros[:, 0].astype(jnp.int32)
-        init = init + (pixel_arr + zeros[:, 0].astype(jnp.uint32),
-                       sample_arr + zeros[:, 0].astype(jnp.uint32), orig0)
     final, ys = jax.lax.scan(
         bounce_step, init, jnp.arange(cfg.max_bounces, dtype=jnp.uint32)
     )
     radiance, n_rays = final[3], final[5]
-    if wf_sort:
-        # lanes ended in the LAST bounce's sorted order; orig maps each lane
-        # back to its caller index
-        orig = final[8]
-        radiance = jnp.zeros_like(radiance).at[orig].set(radiance)
     if collect_paths:
         return radiance, ys
     if with_stats:
@@ -759,27 +549,14 @@ def maybe_build_accel(scene: Scene, backend: str, accel=None):
     """Host-side accelerator auto-build for the entry points (driver,
     render_image).
 
-    Builds the structure the backend needs — a ClusterScene for "cluster",
-    a FlatBVH for "bvh", and the platform pick of the two when "auto"
-    resolves past AUTO_BRUTE_MAX_TRIS. Must run on concrete (non-traced)
-    scene arrays — call before entering jit."""
+    Builds a FlatBVH for "bvh", and for "auto" past auto_brute_max_tris().
+    Must run on concrete (non-traced) scene arrays — call before entering
+    jit."""
     if accel is not None:
         return accel
-    n_tris = scene.faces.shape[0]
-    if backend == "auto" and n_tris > AUTO_BRUTE_MAX_TRIS:
-        backend = accel_backend()
-    if backend in ("cluster", "cluster_chunked"):
-        # oversize scenes get VMEM-resident chunks (the measured-fastest
-        # capacity path); build_chunked_clusters returns a plain
-        # ClusterScene when one chunk suffices
-        from pyrenderer_tpu.accel.clusters import build_chunked_clusters
-
-        return build_chunked_clusters(scene.vertices, scene.faces)
-    if backend in ("cluster_binned", "cluster_streamed"):
-        from pyrenderer_tpu.accel.clusters import build_clusters
-
-        return build_clusters(scene.vertices, scene.faces)
-    if backend == "bvh":
+    if backend == "bvh" or (
+        backend == "auto" and scene.faces.shape[0] > auto_brute_max_tris()
+    ):
         from pyrenderer_tpu.accel.bvh import build_bvh
 
         return build_bvh(scene.vertices, scene.faces)
@@ -811,16 +588,14 @@ def render_image(
     from pyrenderer_tpu.core.camera import morton_pixel_order
 
     accel = maybe_build_accel(scene, backend, accel if accel is not None else bvh)
-    # resolve the backend OUTSIDE jit: the concrete string (including the
-    # PYRENDERER_CLUSTER_IMPL=binned upgrade) becomes part of render_block's
-    # static cache key — a trace-time env read would be ignored on cache hits
+    # resolve the backend OUTSIDE jit: the concrete string becomes part of
+    # render_block's static cache key
     backend = resolve_backend(backend, scene.faces.shape[0], accel)
     w, h = camera.resolution
     ys, xs = np.mgrid[0:h, 0:w]
-    # trace pixels in Morton order: each 128-ray wavefront tile is then a
-    # compact screen block, which is what makes the accelerated backends'
-    # tile-level culls effective (invisible to the estimator — RNG is
-    # keyed on pixel id)
+    # trace pixels in Morton order: each run of consecutive rays is then a
+    # compact screen block, so neighbouring threads walk similar BVH paths
+    # (invisible to the estimator — RNG is keyed on pixel id)
     perm, inv_perm = morton_pixel_order(w, h)
     xs = jnp.asarray(xs.reshape(-1)[perm], jnp.int32)
     ys = jnp.asarray(ys.reshape(-1)[perm], jnp.int32)

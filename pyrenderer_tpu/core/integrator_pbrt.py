@@ -57,16 +57,10 @@ def _match_vma(x, ref):
     Needed so `lax.scan` carries typecheck under `check_vma=True` when a
     body output is derived purely from collective-combined (invariant)
     values but its carry slot entered varying."""
-    try:
-        need = jax.typeof(ref).vma - jax.typeof(x).vma
-    except AttributeError:
-        return x
+    need = jax.typeof(ref).vma - jax.typeof(x).vma
     if not need:
         return x
-    pcast = getattr(jax.lax, "pcast", None)
-    if pcast is not None:
-        return pcast(x, tuple(need), to="varying")
-    return jax.lax.pvary(x, tuple(need))
+    return jax.lax.pcast(x, tuple(sorted(need)), to="varying")
 
 
 def trace_pbrt(
@@ -86,36 +80,22 @@ def trace_pbrt(
         _any_hit,
         _closest,
         _sample_light_point,
-        use_wavefront_sort,
-        wavefront_sort_perm,
     )
 
     dtype = ro.dtype
     if tables is None:
         tables = TraceTables(scene, cfg, backend)
-    wf_sort = use_wavefront_sort(tables, cfg)
     n = ro.shape[0]
-    pixel_arr = jnp.broadcast_to(pixel_id, (n,)).astype(jnp.uint32)
-    sample_arr = jnp.broadcast_to(sample_id, (n,)).astype(jnp.uint32)
+    pixel_id = jnp.broadcast_to(pixel_id, (n,)).astype(jnp.uint32)
+    sample_id = jnp.broadcast_to(sample_id, (n,)).astype(jnp.uint32)
 
     def bounce_step(state, bounce):
-        if wf_sort:
-            (ro, rd, beta, radiance, alive, prev_pdf, prev_spec, n_rays,
-             pixel_id, sample_id, orig) = state
-            p = wavefront_sort_perm(tables.accel, ro, rd, alive)
-            ro, rd, beta, radiance, alive = (
-                ro[p], rd[p], beta[p], radiance[p], alive[p])
-            prev_pdf, prev_spec = prev_pdf[p], prev_spec[p]
-            pixel_id, sample_id, orig = pixel_id[p], sample_id[p], orig[p]
-        else:
-            ro, rd, beta, radiance, alive, prev_pdf, prev_spec, n_rays = state
-            pixel_id, sample_id = pixel_arr, sample_arr
+        ro, rd, beta, radiance, alive, prev_pdf, prev_spec, n_rays = state
         n_rays = n_rays + jnp.sum(alive, dtype=jnp.float32)
 
         # dead lanes trace a zero interval — see trace_reference
         t_clip = jnp.where(alive, jnp.asarray(cfg.t_max, dtype), 0.0)
-        hit, _, tri = _closest(scene, tables, cfg, ro, rd, t_clip,
-                               sort=False if wf_sort else None)
+        hit, _, tri = _closest(scene, tables, cfg, ro, rd, t_clip)
         tri = sg(jnp.maximum(tri, 0))
         hit = sg(hit)
 
@@ -176,8 +156,7 @@ def trace_pbrt(
         shadow_t1 = jnp.where(
             nee_candidate, sg(dist) * (1.0 - cfg.shadow_eps), 0.0
         )
-        occ = _any_hit(scene, tables, cfg, sg(p), sg(wl), shadow_t1,
-                       sort=False if wf_sort else None)
+        occ = _any_hit(scene, tables, cfg, sg(p), sg(wl), shadow_t1)
         n_rays = n_rays + jnp.sum(alive, dtype=jnp.float32)
         pdf_nee_sa = pdf_a * dist_sq / jnp.maximum(cos_light, 1e-6)
         pdf_bsdf_here = bsdf.lambert_pdf(nrm, wl)
@@ -228,10 +207,7 @@ def trace_pbrt(
 
         ro = jnp.where(alive[:, None], p, ro)
         rd = jnp.where(alive[:, None], wi, rd)
-        out = (ro, rd, beta, radiance, alive, prev_pdf, prev_spec, n_rays)
-        if wf_sort:
-            out = out + (pixel_id, sample_id, orig)
-        return out, None
+        return (ro, rd, beta, radiance, alive, prev_pdf, prev_spec, n_rays), None
 
     zeros = ro * 0
     init = (
@@ -244,19 +220,10 @@ def trace_pbrt(
         zeros[:, 0] != 0,       # prev_spec (False)
         jnp.sum(zeros[:, 0]).astype(jnp.float32),
     )
-    if wf_sort:
-        # derive from ro for shard_map varying-axes consistency (see
-        # trace_reference)
-        orig0 = jnp.arange(n, dtype=jnp.int32) + zeros[:, 0].astype(jnp.int32)
-        init = init + (pixel_arr + zeros[:, 0].astype(jnp.uint32),
-                       sample_arr + zeros[:, 0].astype(jnp.uint32), orig0)
     final, _ = jax.lax.scan(
         bounce_step, init, jnp.arange(cfg.max_bounces, dtype=jnp.uint32)
     )
     radiance, n_rays = final[3], final[7]
-    if wf_sort:
-        orig = final[10]
-        radiance = jnp.zeros_like(radiance).at[orig].set(radiance)
     if with_stats:
         return radiance, n_rays
     return radiance

@@ -1,21 +1,21 @@
-"""Batched ray-triangle intersection (JAX): VPU elementwise + MXU matmul paths.
+"""Batched ray-triangle intersection (JAX): broadcast elementwise + matmul paths.
 
 The reference's innermost hot loop is a scalar Möller–Trumbore test run
 per-face inside each BVH leaf (reference mathematics/intersection_taichi.py:69
 ray_triangle_hit; Numba batch variant mathematics/intersection.py:42-82).
-A TPU has no efficient scalar path — instead:
+Here every ray meets every triangle at once, as array programs:
 
 1. ``intersect_brute`` — broadcast (N rays × T triangles) Möller–Trumbore in
    the reference's exact operation order (used for parity tests and as the
-   correctness oracle; VPU-bound).
+   correctness oracle; the CPU default).
 
-2. ``intersect_matmul`` — the TPU-first design: every Möller–Trumbore
+2. ``intersect_matmul`` — every Möller–Trumbore
    quantity is a scalar triple product, i.e. a polynomial in (o, d) that is
    at most bilinear: f(o, d) = c0 + a·o + b·d + o^T C d. Stacking the
    coefficients of [det, u*det, v*det, t*det] for all T triangles gives a
    (16, 4T) matrix; a wavefront of N rays forms features
    phi = [1, o, d, o (x) d] in R^16 and ONE matmul phi @ W computes every
-   ray-triangle test on the MXU at matrix-unit throughput.
+   ray-triangle test. Not auto-selected; kept as plain XLA.
 
 Both return the same (hit, t, tri) up to floating-point association.
 """
@@ -108,7 +108,7 @@ def occluded(scene: Scene, ro, rd, t0, t1):
 
 
 # ---------------------------------------------------------------------------
-# MXU path: intersection as matmul.
+# Matmul path: intersection as one matrix product.
 # ---------------------------------------------------------------------------
 
 def build_tri_matrix(scene: Scene):
@@ -164,12 +164,12 @@ def ray_features(ro, rd):
 
 
 def mt_terms_matmul(tri_matrix, ro, rd):
-    """All (N, T) Möller–Trumbore terms via one MXU matmul."""
+    """All (N, T) Möller–Trumbore terms via one matmul."""
     k, T, _ = tri_matrix.shape
     phi = ray_features(ro, rd)                                     # (N, 16)
-    # Precision.HIGHEST is load-bearing: the TPU MXU's default bf16 matmul
-    # (8-bit mantissa) loses the geometric precision of the triple products
-    # and silently misses intersections (~3x darker renders).
+    # Precision.HIGHEST is load-bearing: a reduced-precision default
+    # (TF32 on the GPU) loses the geometric precision of the triple
+    # products and silently misses intersections.
     raw = jnp.dot(
         phi,
         tri_matrix.reshape(k, T * 4),
@@ -186,7 +186,7 @@ def mt_terms_matmul(tri_matrix, ro, rd):
 
 
 def intersect_matmul(scene: Scene, ro, rd, t0, t1, tri_matrix=None):
-    """Closest hit using the MXU formulation. Same contract as intersect_brute."""
+    """Closest hit using the matmul formulation. Same contract as intersect_brute."""
     if tri_matrix is None:
         tri_matrix = build_tri_matrix(scene)
     det, t, u, v = mt_terms_matmul(tri_matrix, ro, rd)

@@ -7,10 +7,11 @@ reject only when the edge signs are mixed — shared edges/vertices then
 never leak rays.
 
 The reference falls back to float64 when an edge function is exactly zero
-(intersection_taichi.py:128-136). TPUs have no fast f64 (SURVEY §7 "Hard
-parts"), so the fallback here is a **compensated difference-of-products**
-(Dekker/Kahan two-product), pure f32 — it recovers the correctly-signed
-residual of a*b - c*d even under catastrophic cancellation, at ~10 VPU ops,
+(intersection_taichi.py:128-136). f64 is slow on accelerators (SURVEY §7
+"Hard parts"), so the fallback here is a **compensated difference-of-
+products** (Dekker/Kahan two-product), pure f32 — it recovers the
+correctly-signed residual of a*b - c*d even under catastrophic
+cancellation, at ~10 elementwise ops,
 only ever applied where the fast path returned exactly 0.
 """
 
@@ -63,8 +64,7 @@ def edge_fn(a, b, c, d):
     """Watertight 2D edge function a*b - c*d: fast product difference,
     compensated (diff_of_products) wherever cancellation leaves less
     than ~2 ulp of signal — see _EDGE_REL_TOL for why the trigger is a
-    threshold, not ==0. Shared by the CPU oracle and (same algebra,
-    kernel layout) kernels/pallas_cluster._leaf_wt_chunk."""
+    threshold, not ==0."""
     p1 = a * b
     p2 = c * d
     e = p1 - p2

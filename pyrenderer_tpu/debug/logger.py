@@ -1,4 +1,4 @@
-"""Ray-path debug logging — the TPU generalization of the reference's
+"""Ray-path debug logging — the wavefront generalization of the reference's
 RayLogger (reference debug/ray_logger.py:1-15 accumulates line segments for
 open3d; SURVEY §5.5 calls for "a debug mode that records per-bounce hit
 records — straight generalization of RayLogger").

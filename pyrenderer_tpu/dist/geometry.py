@@ -2,7 +2,7 @@
 
 This is the renderer's scene-size scaling axis (SURVEY §5.7): rays stay
 put, each device holds only ITS shard of the triangle set, and the global
-closest hit is a cross-device min-reduction over ICI. The reference has no
+closest hit is a cross-device min-reduction. The reference has no
 analog — its whole scene lives on the one device (Taichi fields,
 intersection_taichi.py:189 World) — so this is a pure north-star addition.
 
@@ -34,31 +34,22 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import mesh_utils
 from jax.sharding import Mesh, PartitionSpec as P
 
 from pyrenderer_tpu.config import RenderConfig
 from pyrenderer_tpu.core import intersect as isect
-from pyrenderer_tpu.core import lut
 from pyrenderer_tpu.core.camera import generate_rays
 from pyrenderer_tpu.core.integrator import (
     TraceTables,
+    default_backend,
     pack_face_data,
     pack_light_data,
     trace_reference,
 )
+from pyrenderer_tpu.kernels import pallas_intersect as pk
 from pyrenderer_tpu.scene.types import Camera, Scene
 
 sg = jax.lax.stop_gradient
-
-
-def _to_varying(x, axes):
-    """Promote to varying over `axes` (jax.lax.pcast; pvary on older jax,
-    where it was the pre-deprecation spelling)."""
-    pcast = getattr(jax.lax, "pcast", None)
-    if pcast is not None:
-        return pcast(x, tuple(axes), to="varying")
-    return jax.lax.pvary(x, tuple(axes))
 
 
 def make_geom_mesh(n_devices: int | None = None, gp: int | None = None,
@@ -73,8 +64,8 @@ def make_geom_mesh(n_devices: int | None = None, gp: int | None = None,
     elif dp is None:
         dp = n // gp
     assert dp * gp == n, f"dp*gp must equal device count ({dp}*{gp} != {n})"
-    mesh_devices = mesh_utils.create_device_mesh((dp, gp), devices=devices[:n])
-    return Mesh(mesh_devices, ("dp", "gp"))
+    # all-to-all links: a plain reshape of the device list (dist/render.py)
+    return Mesh(np.asarray(devices[:n]).reshape(dp, gp), ("dp", "gp"))
 
 
 def _pad_to(x, rows):
@@ -108,39 +99,6 @@ def shard_geometry(scene: Scene, cfg: RenderConfig, gp: int):
     return (shard(v0), shard(e1), shard(e2)), shard(face_data), light_data
 
 
-def build_shard_clusters(scene: Scene, gp: int):
-    """Host-side: one ClusterScene per triangle shard, stacked leaf-wise
-    into a (gp, ...) pytree for a P("gp") shard_map input.
-
-    This is what composes "large scene" with "multi-chip": each device
-    traverses only ITS shard through the cluster sweep (the lockstep
-    Pallas kernel on TPU, the dense pure-JAX twin elsewhere) instead of
-    the O(T_local) brute path, and the existing all_gather/argmin/psum
-    combine produces the global hit exactly as before.
-
-    Shards are zero-padded to equal triangle counts so every per-shard
-    build has identical shapes (stackable): a zero face row references
-    vertex 0 with e1 = e2 = 0, so its det == 0 and it can never win a hit;
-    its point AABB costs at most a spurious box test near that vertex.
-    """
-    from pyrenderer_tpu.accel.clusters import build_clusters
-
-    v = np.asarray(scene.vertices)
-    f = np.asarray(scene.faces)
-    t = f.shape[0]
-    t_local = (t + gp - 1) // gp
-    shards = []
-    for g in range(gp):
-        fl = f[g * t_local:(g + 1) * t_local]
-        pad = t_local - fl.shape[0]
-        if pad:
-            fl = np.concatenate([fl, np.zeros((pad, 3), f.dtype)])
-        shards.append(build_clusters(v, fl))
-    return jax.tree.map(
-        lambda *xs: jnp.stack([jnp.asarray(x) for x in xs]), *shards
-    )
-
-
 def _strip_scene(scene: Scene) -> Scene:
     """Keep only the light metadata the integrator reads from `scene` when
     every geometry access goes through custom hooks — so the replicated
@@ -161,22 +119,18 @@ def render_field_geometry_sharded(
     mesh: Mesh,
     pixel_x,
     pixel_y,
-    cluster_stack=None,
 ):
     """Mean radiance (N, 3) with triangles sharded over "gp" and pixels over
     "dp". Numerically identical to the single-device render (the min/argmin
     combine and masked psums are exact — no reassociation of sums).
 
-    cluster_stack: optional (gp, ...)-stacked per-shard ClusterScene from
-    build_shard_clusters (built on HOST arrays, outside jit). Each device
-    then runs the accelerated cluster sweep over its own shard — the
-    composition of the scene-size axis with the device axis that large
-    scenes need; None keeps the O(T_local) dense intersector (fine for
-    small shards, and the oracle the cluster path is tested against).
+    Each device intersects its own shard with the platform's whole-table
+    path (core.integrator.default_backend: the Pallas kernel on the GPU,
+    the broadcast XLA path elsewhere), O(T_local) per ray.
     """
     gp = mesh.shape["gp"]
     tri_shards, face_shards, light_data = shard_geometry(scene, cfg, gp)
-    cs_stack = cluster_stack
+    use_kernel = default_backend() == "pallas"
     t_local = face_shards.shape[1]
     scene_l = _strip_scene(scene)
     strata = int(math.ceil(math.sqrt(cfg.spp))) if cfg.stratified else 0
@@ -191,14 +145,12 @@ def render_field_geometry_sharded(
 
     in_specs = (P(), P(), P("dp"), P("dp"),
                 P("gp"), P("gp"), P("gp"), P("gp"), P())
-    if cs_stack is not None:
-        in_specs = in_specs + (P("gp"),)
 
     # Every gp device computes the identical (N/dp, 3) block (the hit
     # combine is a psum), so each device RETURNS its own gp-slice of the
     # rows and the out spec reassembles them. Exact: pure data movement,
     # no math. check_vma on: the bounce-scan carries enter gp-varying
-    # (rays promoted below via _to_varying) and psum-combined body outputs
+    # (rays promoted below via pcast) and psum-combined body outputs
     # are re-promoted to match (integrator_pbrt._match_vma), so the
     # static varying-axes checker types the whole body; the parity
     # tests (tests/test_dist_geometry.py) also verify replication
@@ -210,39 +162,18 @@ def render_field_geometry_sharded(
         out_specs=P(("dp", "gp")),
         check_vma=True,
     )
-    def shard_render(scene_l, camera, px, py, v0s, e1s, e2s, fds, light_data,
-                     *rest):
+    def shard_render(scene_l, camera, px, py, v0s, e1s, e2s, fds, light_data):
         v0l, e1l, e2l, fdl = v0s[0], e1s[0], e2s[0], fds[0]
         base = jax.lax.axis_index("gp").astype(jnp.int32) * t_local
 
-        if rest:
-            # accelerated per-shard traversal: the cluster sweep over THIS
-            # device's shard only (Pallas kernel on TPU, pure-JAX twin
-            # elsewhere); zero-padded faces have det == 0 and never win
-            from pyrenderer_tpu.core.integrator import (
-                resolve_cluster_sort,
-                resolve_cluster_watertight,
-            )
-            from pyrenderer_tpu.kernels import pallas_cluster as pc
+        if use_kernel:
+            tri_l = jnp.concatenate([v0l.T, e1l.T, e2l.T], axis=0)
 
-            cs_l = jax.tree.map(lambda x: x[0], rest[0])
-            do_sort = resolve_cluster_sort(cfg, cs_l)
-            do_wt = resolve_cluster_watertight(cfg, cs_l)
-
-            # forward the FULL cluster config (watertight leaves, suspend/
-            # resume rounds) exactly like core/integrator._closest — same
-            # config must mean the same hit set on every execution path
             def local_closest(ro, rd, t1):
-                return pc.closest_hit(cs_l, ro, rd, cfg.t_min, t1,
-                                      sort=do_sort,
-                                      watertight=do_wt,
-                                      rounds=cfg.cluster_rounds,
-                                      budget=cfg.cluster_budget)
+                return pk.closest_hit(tri_l, ro, rd, cfg.t_min, t1)
 
             def local_occluded(ro, rd, t1):
-                return pc.occluded(cs_l, ro, rd, cfg.t_min, t1,
-                                   sort=do_sort,
-                                   watertight=do_wt)
+                return pk.occluded(tri_l, ro, rd, cfg.t_min, t1)
         else:
             def local_closest(ro, rd, t1):
                 return isect.intersect_brute_arrays(
@@ -274,7 +205,7 @@ def render_field_geometry_sharded(
         def fetch_face(tri_g):
             mine = (tri_g >= base) & (tri_g < base + t_local)
             idx = jnp.clip(tri_g - base, 0, t_local - 1)
-            row = lut.fetch_rows(fdl, idx)
+            row = jnp.take(fdl, idx, axis=0)
             return jax.lax.psum(jnp.where(mine[:, None], row, 0.0), "gp")
 
         tables = TraceTables.custom(fdl, light_data, closest, any_hit, fetch_face)
@@ -288,7 +219,7 @@ def render_field_geometry_sharded(
             # (they flow through gp-sharded triangle tables before the exact
             # psum/all_gather combines), so promote the scan's init to match
             # — this is what lets check_vma=True typecheck the body
-            ro, rd = _to_varying((ro, rd), ("gp",))
+            ro, rd = jax.lax.pcast((ro, rd), ("gp",), to="varying")
             if cfg.estimator == "reference":
                 return trace_reference(
                     scene_l, cfg, ro, rd, pixel_id, sample, cfg.seed, tables=tables
@@ -305,11 +236,8 @@ def render_field_geometry_sharded(
         gp_idx = jax.lax.axis_index("gp")
         return jax.lax.dynamic_slice_in_dim(local, gp_idx * chunk, chunk)
 
-    args = (scene_l, camera, pixel_x, pixel_y, *tri_shards, face_shards,
-            light_data)
-    if cs_stack is not None:
-        args = args + (cs_stack,)
-    return shard_render(*args)
+    return shard_render(scene_l, camera, pixel_x, pixel_y, *tri_shards,
+                        face_shards, light_data)
 
 
 @partial(jax.jit, static_argnames=("cfg", "mesh"))
@@ -323,24 +251,19 @@ def train_step_geometry(
     pixel_x,
     pixel_y,
     lr,
-    cluster_stack=None,
 ):
     """Inverse-rendering step with the scene geometry sharded over "gp".
 
     Gradients w.r.t. the face-table shards arrive on their owning devices
     (psum transpose) and are re-assembled into dense (vertices, albedo,
     emission) grads by the host-side shard pack's transpose.
-    cluster_stack: optional per-shard accelerator from build_shard_clusters
-    (host-built, passed through jit as an ordinary pytree; hit selection is
-    detached, so a fixed accel stays a valid traversal oracle while the
-    vertices take small training steps).
     """
 
     def loss_fn(params):
         vertices, albedo, emission = params
         s = scene._replace(vertices=vertices, albedo=albedo, emission=emission)
         img = render_field_geometry_sharded(s, camera, cfg, mesh, pixel_x,
-                                            pixel_y, cluster_stack=cluster_stack)
+                                            pixel_y)
         return jnp.mean((img - target) ** 2)
 
     loss, grads = jax.value_and_grad(loss_fn)(params)

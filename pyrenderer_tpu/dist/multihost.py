@@ -2,19 +2,20 @@
 
 The reference's only cross-process machinery is joblib fan-out with pickled
 scenes (reference main.py:51-53) — results are gathered through function
-return values, one host only. The TPU-native multi-host model instead runs
-ONE SPMD program over all processes: every process executes the same jitted
-shard_map over a GLOBAL mesh; XLA routes collectives over ICI within a host
-slice and DCN across hosts (SURVEY §5.8).
+return values, one host only. The multi-process model here instead runs ONE
+SPMD program over all processes, one process per GPU: every process
+executes the same jitted shard_map over a GLOBAL mesh, and XLA hands the
+collectives to NCCL — over NVLink between the cards of one host, over the
+network between hosts (SURVEY §5.8).
 
 Pieces:
   initialize(...)        — jax.distributed bring-up from args or env
                            (COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID;
                            no-op for single-process runs).
   make_host_mesh(...)    — (dp, sp) mesh over the GLOBAL device list, dp
-                           outermost so pixel tiles shard across hosts (one
-                           all-gather of tiles rides DCN once per frame,
-                           while the spp psum stays inside a host).
+                           outermost so pixel tiles shard across processes
+                           (one all-gather of tiles per frame, while the spp
+                           psum stays inside a process when it can).
   render_image_multihost — full-frame render: every process computes its
                            addressable pixel shards, process 0 (or all, via
                            allgather) assembles the image.
@@ -47,8 +48,11 @@ def initialize(coordinator: str | None = None, num_processes: int | None = None,
     multi-process runtime was initialized.
 
     Env fallbacks: PYRT_COORDINATOR (host:port), PYRT_NUM_PROCESSES,
-    PYRT_PROCESS_ID. On TPU pods jax.distributed.initialize() can discover
-    everything itself — call with no args and num_processes unset.
+    PYRT_PROCESS_ID. Nothing discovers a cluster on its own, so a
+    multi-process run passes all three. On the GPU each process is pinned
+    to one card, `local_device_ids=[process_id % cards on this host]`, so
+    processes never share a card (each JAX process reserves most of the
+    card's memory when it starts).
     """
     coordinator = coordinator or os.environ.get("PYRT_COORDINATOR")
     if num_processes is None and "PYRT_NUM_PROCESSES" in os.environ:
@@ -57,20 +61,43 @@ def initialize(coordinator: str | None = None, num_processes: int | None = None,
         process_id = int(os.environ["PYRT_PROCESS_ID"])
     if num_processes is None or num_processes <= 1:
         return False
+    kwargs = {}
+    ids = card_ids(process_id, _gpu_count(),
+                   on_cpu=jax.config.jax_platforms == "cpu")
+    if ids is not None:
+        kwargs["local_device_ids"] = ids
     jax.distributed.initialize(
         coordinator_address=coordinator,
         num_processes=num_processes,
         process_id=process_id,
+        **kwargs,
     )
     return True
+
+
+def card_ids(process_id: int, n_cards: int, on_cpu: bool):
+    """The card a GPU process owns, [process_id % n_cards]; None for CPU
+    processes or on a host without cards (nothing to pin)."""
+    if on_cpu or n_cards == 0:
+        return None
+    return [process_id % n_cards]
+
+
+def _gpu_count() -> int:
+    """Number of NVIDIA cards on this host, from the driver's device nodes
+    (no JAX backend is touched, so it is safe before initialize())."""
+    import glob
+
+    return len(glob.glob("/dev/nvidia[0-9]*"))
 
 
 def make_host_mesh(dp: int | None = None, sp: int | None = None) -> Mesh:
     """(dp, sp) mesh over ALL processes' devices, dp-major in process order.
 
-    Process-contiguous dp: each host owns a contiguous band of pixel tiles,
-    so the per-frame tile gather is one DCN transfer per host pair and the
-    spp psum (when sp > 1 within a host) never leaves ICI.
+    Process-contiguous dp: each process owns a contiguous band of pixel
+    tiles, so the per-frame tile gather is one transfer per process pair,
+    and the spp psum (when sp > 1 within a process) stays on that
+    process's cards.
     """
     devices = np.asarray(jax.devices())  # global, process-major order
     n = devices.size

@@ -3,16 +3,19 @@
 The reference's only parallelism is joblib process fan-out over pixels
 (reference main.py:51-53) and a Taichi per-pixel parallel-for
 (main_taichi.py:89); there is no cross-device machinery at all (SURVEY
-§2.2). Here the TPU-native equivalents:
+§2.2). Here the device-mesh equivalents:
 
 - mesh axes ("dp", "sp"): pixel tiles shard over "dp", samples-per-pixel
   shard over "sp". Radiance accumulation is associative, so spp sharding is
-  one `psum` over ICI per frame (the TPU analog of the reference's
+  one `psum` per frame (the collective analog of the reference's
   progressive `pixels += color` accumulation, main_taichi.py:98-99).
 - the inverse-rendering training step differentiates straight through the
-  `shard_map`; scene-parameter gradients all-reduce over ICI automatically
-  (the psum transpose), which is the gradient path BASELINE's north star
+  `shard_map`; scene-parameter gradients all-reduce automatically (the
+  psum transpose), which is the gradient path BASELINE's north star
   describes.
+
+The cards of one host are joined all to all (NVLink), so the mesh is a
+plain reshape of the device list: no axis order is cheaper than another.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ from typing import Tuple
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import mesh_utils
+import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
 from pyrenderer_tpu.config import RenderConfig
@@ -41,8 +44,7 @@ def make_mesh(n_devices: int | None = None, dp: int | None = None, sp: int | Non
     elif sp is None:
         sp = n // dp
     assert dp * sp == n, f"dp*sp must equal device count ({dp}*{sp} != {n})"
-    mesh_devices = mesh_utils.create_device_mesh((dp, sp), devices=devices[:n])
-    return Mesh(mesh_devices, ("dp", "sp"))
+    return Mesh(np.asarray(devices[:n]).reshape(dp, sp), ("dp", "sp"))
 
 
 def render_field_sharded(
@@ -58,7 +60,7 @@ def render_field_sharded(
     sp: spp). The scene is replicated (it is small next to the ray state);
     for huge scenes see dist/geometry.py's "gp" triangle sharding.
 
-    `accel` (optional): a prebuilt accelerator (ClusterScene / FlatBVH from
+    `accel` (optional): a prebuilt accelerator (FlatBVH from
     core.integrator.maybe_build_accel) — replicated over the mesh like the
     scene, so LARGE scenes run the accelerated traversal inside the
     shard_map instead of silently falling back to the O(T) whole-table
@@ -71,12 +73,6 @@ def render_field_sharded(
     from pyrenderer_tpu.core.integrator import resolve_backend
 
     backend = resolve_backend("auto", scene.faces.shape[0], accel)
-    if backend == "cluster_binned":
-        # the binned opt-in stays single-chip: inside the mesh the sweep is
-        # the measured-better and chip-validated path ("cluster_streamed"
-        # is NOT remapped — it exists precisely because the resident sweep
-        # cannot compile for the scene)
-        backend = "cluster"
 
     def body(scene, camera, px, py, accel):
         sp_idx = jax.lax.axis_index("sp")
@@ -130,7 +126,7 @@ def train_step(
 ):
     """One inverse-rendering step: render -> L2 loss vs target -> SGD on
     (vertices, albedo, emission). Differentiates through the shard_map;
-    parameter grads all-reduce over ICI via the psum transpose.
+    parameter grads all-reduce via the psum transpose.
 
     params: (vertices, albedo, emission); target: (N, 3) radiance.
     lr: scalar, or a (lr_vertices, lr_albedo, lr_emission) tuple to give

@@ -1,20 +1,29 @@
-"""Pallas TPU kernel: fused wavefront ray-triangle closest-hit.
+"""Whole-table ray-triangle intersection as a Pallas kernel for the GPU.
 
-The pure-XLA paths (core/intersect.py) materialize (N_rays, N_tris)
-intermediates in HBM — at 1M rays x 36 tris that is GBs of traffic and
-~33 ms/query on a v5e. This kernel is the TPU-native equivalent of the
-reference's innermost loop (reference mathematics/intersection_taichi.py:69
-ray_triangle_hit inside shapes.py:80-90 per-face scan): triangle data sits
-in SMEM as scalars, rays stream through VMEM in (BM, 128) tiles, and the
-running (t, tri) minimum lives in registers — HBM sees only the ray inputs
-and the per-ray outputs.
+The pure-XLA path (core/intersect.py `intersect_brute`) evaluates every
+(ray, triangle) pair as broadcast (N, T) arrays and then reduces them with
+an argmin. This kernel fuses the whole query instead: one program owns a
+block of BLOCK_RAYS rays, one ray per thread; each ray and its running
+(t, tri) minimum stay in registers while the program loops over the
+triangle table, so device memory sees only the ray inputs and the per-ray
+outputs. It is the GPU form of the reference's innermost loop (reference
+mathematics/intersection_taichi.py:69 ray_triangle_hit inside the
+shapes.py:80-90 per-face scan).
 
-Layout: component-planes. Rays arrive as six (M, 128) float32 planes
-(ox, oy, oz, dx, dy, dz) where N = M * 128 — the natural VPU tiling, versus
-the (N, 3) array-of-structs layout that wastes 125 of 128 lanes.
+Layout:
+- rays arrive as seven structure-of-arrays vectors (ox, oy, oz, dx, dy, dz,
+  t1), padded to a multiple of BLOCK_RAYS, so each program's loads are
+  coalesced;
+- the (9, T) triangle table [v0 | e1 | e2] is read with scalar loads that
+  every thread of a program shares; at the table sizes this path serves
+  (a few thousand triangles) it stays resident in L1/L2.
+
+The kernel goes through Pallas's Triton route (`backend="triton"`), named
+explicitly. It compiles only for the GPU; elsewhere it runs with
+`interpret=True` (tests) or raises.
 
 Accept test and strict-less-than closest update reproduce the reference
-semantics (ties resolve to the lowest face index).
+semantics, so ties resolve to the lowest face index.
 """
 
 from __future__ import annotations
@@ -24,27 +33,45 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
 from pyrenderer_tpu.kernels import vma
 
-LANES = 128
-DEF_BM = 128          # sublane rows per grid step (256 blows the 16M VMEM
-                      # scoped-stack limit: the unrolled triangle loop's
-                      # independent temporaries all stay live)
-UNROLL_T = 64         # unroll the triangle loop up to this many triangles
+BLOCK_RAYS = 128      # rays per program: one per thread of 4 warps
+NUM_WARPS = 4
+UNROLL = 4            # triangles per loop iteration; the table is padded to it
 MISS_T = 3.0e38
 
 
-def _mt_test(tri, ti, ox, oy, oz, dx, dy, dz, t0, t1):
-    """One scalar-triangle Möller–Trumbore test against a ray tile.
+def check_platform(interpret: bool) -> None:
+    """The kernel compiles for the GPU only: refuse anything else unless
+    the caller asked for the Pallas interpreter."""
+    if not interpret and jax.default_backend() != "gpu":
+        raise RuntimeError(
+            "backend='pallas' compiles for the GPU only; this process runs "
+            f"on '{jax.default_backend()}'. Use backend='auto' or 'brute', "
+            "or pass interpret=True to run the kernel in the interpreter."
+        )
 
-    tri: (9, T) SMEM ref rows [v0x v0y v0z e1x e1y e1z e2x e2y e2z].
-    Returns (ok, t) for the tile.
-    """
+
+def pack_triangles(vertices, faces):
+    """(9, T) float32 triangle table [v0 | e1 | e2], one column per face."""
+    v0 = vertices[faces[:, 0]]
+    e1 = vertices[faces[:, 1]] - v0
+    e2 = vertices[faces[:, 2]] - v0
+    return jnp.concatenate([v0.T, e1.T, e2.T], axis=0).astype(jnp.float32)
+
+
+def _mt_test(tri, ti, o, d, t0, t1):
+    """Möller–Trumbore for triangle `ti` against the program's rays.
+
+    Same operation order as core/intersect._mt_terms. Returns (ok, t),
+    where ok also requires t0 < t < t1."""
     v0x, v0y, v0z = tri[0, ti], tri[1, ti], tri[2, ti]
     e1x, e1y, e1z = tri[3, ti], tri[4, ti], tri[5, ti]
     e2x, e2y, e2z = tri[6, ti], tri[7, ti], tri[8, ti]
+    ox, oy, oz = o
+    dx, dy, dz = d
 
     # c = cross(e1, d)
     cx = e1y * dz - e1z * dy
@@ -77,179 +104,141 @@ def _mt_test(tri, ti, ox, oy, oz, dx, dy, dz, t0, t1):
     return ok, t
 
 
-def _closest_kernel(n_tris, t0, tri_smem, ox, oy, oz, dx, dy, dz, t1, t_out, tri_out):
-    shape = ox.shape
-    oxv, oyv, ozv = ox[...], oy[...], oz[...]
-    dxv, dyv, dzv = dx[...], dy[...], dz[...]
+def _closest_kernel(n_groups, t0, tri, ox, oy, oz, dx, dy, dz, t1,
+                    t_out, tri_out):
+    o = (ox[...], oy[...], oz[...])
+    d = (dx[...], dy[...], dz[...])
     t1v = t1[...]
 
-    t_best = jnp.full(shape, MISS_T, jnp.float32)
-    tri_best = jnp.full(shape, -1, jnp.int32)
-
-    if n_tris <= UNROLL_T:
-        for ti in range(n_tris):
-            ok, t = _mt_test(tri_smem, ti, oxv, oyv, ozv, dxv, dyv, dzv, t0, t1v)
+    def group(g, carry):
+        t_best, tri_best = carry
+        for k in range(UNROLL):
+            ti = g * UNROLL + k
+            ok, t = _mt_test(tri, ti, o, d, t0, t1v)
+            # strict less-than: ties keep the lower face index
             better = ok & (t < t_best)
             t_best = jnp.where(better, t, t_best)
             tri_best = jnp.where(better, ti, tri_best)
-    else:
-        def body(ti, carry):
-            t_best, tri_best = carry
-            ok, t = _mt_test(tri_smem, ti, oxv, oyv, ozv, dxv, dyv, dzv, t0, t1v)
-            better = ok & (t < t_best)
-            return (
-                jnp.where(better, t, t_best),
-                jnp.where(better, ti, tri_best),
-            )
+        return t_best, tri_best
 
-        t_best, tri_best = jax.lax.fori_loop(0, n_tris, body, (t_best, tri_best))
-
+    # constant initial carries (not loaded from a ref): the interpreter
+    # then types the loop the same way inside a check_vma shard_map
+    init = (jnp.full(t1v.shape, MISS_T, jnp.float32),
+            jnp.full(t1v.shape, -1, jnp.int32))
+    t_best, tri_best = jax.lax.fori_loop(0, n_groups, group, init)
     t_out[...] = t_best
     tri_out[...] = tri_best
 
 
-def _anyhit_kernel(n_tris, t0, tri_smem, ox, oy, oz, dx, dy, dz, t1, hit_out):
-    shape = ox.shape
-    oxv, oyv, ozv = ox[...], oy[...], oz[...]
-    dxv, dyv, dzv = dx[...], dy[...], dz[...]
+def _anyhit_kernel(n_groups, t0, tri, ox, oy, oz, dx, dy, dz, t1, hit_out):
+    o = (ox[...], oy[...], oz[...])
+    d = (dx[...], dy[...], dz[...])
     t1v = t1[...]
 
-    hit = jnp.zeros(shape, jnp.int32)
-    if n_tris <= UNROLL_T:
-        for ti in range(n_tris):
-            ok, _ = _mt_test(tri_smem, ti, oxv, oyv, ozv, dxv, dyv, dzv, t0, t1v)
-            hit = hit | ok.astype(jnp.int32)
-    else:
-        def body(ti, hit):
-            ok, _ = _mt_test(tri_smem, ti, oxv, oyv, ozv, dxv, dyv, dzv, t0, t1v)
-            return hit | ok.astype(jnp.int32)
+    def cond(carry):
+        g, hit = carry
+        # rays with an empty interval (dead lanes, padding) can never be
+        # occluded: count them as settled so the block can stop early. A
+        # min over int32, since Triton has no boolean all-reduce. (Kept
+        # inside the loop: the interpreter types loop bodies consistently
+        # under a check_vma shard_map, top-level mixed operands not.)
+        settled = hit | (t1v <= t0)
+        return (g < n_groups) & (jnp.min(settled.astype(jnp.int32)) == 0)
 
-        hit = jax.lax.fori_loop(0, n_tris, body, hit)
-    hit_out[...] = hit
+    def body(carry):
+        g, hit = carry
+        for k in range(UNROLL):
+            ok, _ = _mt_test(tri, g * UNROLL + k, o, d, t0, t1v)
+            hit = hit | ok
+        return g + 1, hit
 
-
-@partial(jax.jit, static_argnames=("t0", "block_m", "interpret"))
-def anyhit_planes(tri_table, ox, oy, oz, dx, dy, dz, t1, t0=1e-5, block_m=DEF_BM, interpret=False):
-    m = ox.shape[0]
-    n_tris = tri_table.shape[1]
-    bm = min(block_m, m)
-    grid = (pl.cdiv(m, bm),)
-    ray_spec = pl.BlockSpec((bm, LANES), lambda i: (i, 0), memory_space=pltpu.VMEM)
-    v = vma.args_vma(ox, oy, oz, dx, dy, dz, t1)
-    tri_table = vma.promote(tri_table, v)
-    return pl.pallas_call(
-        partial(_anyhit_kernel, n_tris, t0),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            ray_spec, ray_spec, ray_spec, ray_spec, ray_spec, ray_spec,
-            ray_spec,
-        ],
-        out_specs=pl.BlockSpec((bm, LANES), lambda i: (i, 0), memory_space=pltpu.VMEM),
-        out_shape=vma.struct((m, LANES), jnp.int32, v),
-        interpret=interpret,
-    )(tri_table, ox, oy, oz, dx, dy, dz, t1)
+    _, hit = jax.lax.while_loop(
+        cond, body, (jnp.int32(0), jnp.zeros(t1v.shape, jnp.bool_)))
+    hit_out[...] = hit.astype(jnp.int32)
 
 
-def pack_triangles(vertices, faces):
-    """(9, T) float32 triangle table [v0 | e1 | e2] for the SMEM operand."""
-    v0 = vertices[faces[:, 0]]
-    e1 = vertices[faces[:, 1]] - v0
-    e2 = vertices[faces[:, 2]] - v0
-    return jnp.concatenate([v0.T, e1.T, e2.T], axis=0).astype(jnp.float32)
+def _pad_table(tri_table):
+    """Pad the table to a multiple of UNROLL with all-zero columns: e1 =
+    e2 = 0 gives det == 0, which the accept test rejects."""
+    pad = -tri_table.shape[1] % UNROLL
+    return jnp.pad(tri_table, ((0, 0), (0, pad))) if pad else tri_table
 
 
-def _plane(x, m):
-    return x.reshape(m, LANES)
-
-
-@partial(jax.jit, static_argnames=("t0", "block_m", "interpret"))
-def closest_hit_planes(
-    tri_table, ox, oy, oz, dx, dy, dz, t1, t0=1e-5, block_m=DEF_BM, interpret=False
-):
-    """Closest hit on component-plane rays. All ray planes (M, 128) f32;
-    t1 per-ray. Returns (t (M,128), tri (M,128) int32, tri == -1 on miss)."""
-    m = ox.shape[0]
-    n_tris = tri_table.shape[1]
-    bm = min(block_m, m)
-    grid = (pl.cdiv(m, bm),)
-    ray_spec = pl.BlockSpec((bm, LANES), lambda i: (i, 0), memory_space=pltpu.VMEM)
-    kernel = partial(_closest_kernel, n_tris, t0)
-    # shard_map(check_vma) support: outputs inherit the rays' varying axes,
-    # and the replicated triangle table is promoted to match (kernels/vma.py)
-    v = vma.args_vma(ox, oy, oz, dx, dy, dz, t1)
-    tri_table = vma.promote(tri_table, v)
-    t_best, tri_best = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),  # tri_table (9, T)
-            ray_spec, ray_spec, ray_spec, ray_spec, ray_spec, ray_spec,
-            ray_spec,                                # t1
-        ],
-        out_specs=[
-            pl.BlockSpec((bm, LANES), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((bm, LANES), lambda i: (i, 0), memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            vma.struct((m, LANES), jnp.float32, v),
-            vma.struct((m, LANES), jnp.int32, v),
-        ],
-        interpret=interpret,
-    )(tri_table, ox, oy, oz, dx, dy, dz, t1)
-    return t_best, tri_best
-
-
-def _split_rays(ro, rd):
-    """(N, 3) pairs -> six padded (M, 128) planes + original N."""
+def _ray_planes(ro, rd, t1):
+    """(N, 3) rays and scalar or (N,) t1 -> seven padded (M,) vectors, M a
+    multiple of BLOCK_RAYS. Padded lanes get t1 = 0 and never hit."""
     n = ro.shape[0]
-    m = pl.cdiv(n, LANES)
-    pad = m * LANES - n
-    if pad:
-        ro = jnp.pad(ro, ((0, pad), (0, 0)))
-        rd = jnp.pad(rd, ((0, pad), (0, 0)), constant_values=1.0)
-    planes = [
-        _plane(ro[:, 0], m), _plane(ro[:, 1], m), _plane(ro[:, 2], m),
-        _plane(rd[:, 0], m), _plane(rd[:, 1], m), _plane(rd[:, 2], m),
-    ]
-    return planes, n, m
+    m = pl.cdiv(n, BLOCK_RAYS) * BLOCK_RAYS
+    t1 = jnp.broadcast_to(jnp.asarray(t1, jnp.float32), (n,))
+    cols = [ro[:, 0], ro[:, 1], ro[:, 2], rd[:, 0], rd[:, 1], rd[:, 2]]
+    cols = [c.astype(jnp.float32) for c in cols] + [t1]
+    if m != n:
+        cols = [jnp.pad(c, (0, m - n)) for c in cols]
+    return cols, n, m
+
+
+def _call(kernel, name, tri_table, planes, m, out_dtypes, interpret):
+    block = pl.BlockSpec((BLOCK_RAYS,), lambda i: (i,))
+    # shard_map(check_vma) support: outputs inherit the rays' varying axes
+    # (kernels/vma.py); the replicated table needs no cast
+    v = vma.args_vma(*planes)
+    return pl.pallas_call(
+        kernel,
+        out_shape=[vma.struct((m,), dt, v) for dt in out_dtypes],
+        grid=(m // BLOCK_RAYS,),
+        # the whole table, unblocked: the kernel reads it by scalar index
+        in_specs=[pl.no_block_spec] + [block] * len(planes),
+        out_specs=[block] * len(out_dtypes),
+        backend="triton",
+        compiler_params=plt.CompilerParams(num_warps=NUM_WARPS, num_stages=1),
+        interpret=interpret,
+        name=name,
+    )(tri_table, *planes)
+
+
+@partial(jax.jit, static_argnames=("t0", "interpret"))
+def _closest(tri_table, ro, rd, t1, t0, interpret):
+    tri_table = _pad_table(tri_table)
+    planes, n, m = _ray_planes(ro, rd, t1)
+    kernel = partial(_closest_kernel, tri_table.shape[1] // UNROLL, t0)
+    t_best, tri_best = _call(kernel, "whole_table_closest_hit", tri_table,
+                             planes, m, (jnp.float32, jnp.int32), interpret)
+    tri = tri_best[:n]
+    hit = tri >= 0
+    return hit, jnp.where(hit, t_best[:n], 0.0), tri
+
+
+@partial(jax.jit, static_argnames=("t0", "interpret"))
+def _occluded(tri_table, ro, rd, t1, t0, interpret):
+    tri_table = _pad_table(tri_table)
+    planes, n, m = _ray_planes(ro, rd, t1)
+    kernel = partial(_anyhit_kernel, tri_table.shape[1] // UNROLL, t0)
+    (hit,) = _call(kernel, "whole_table_any_hit", tri_table, planes, m,
+                   (jnp.int32,), interpret)
+    return hit[:n] > 0
 
 
 def closest_hit(tri_table, ro, rd, t0, t1, interpret=False):
-    """Drop-in wavefront closest hit: ro, rd (N, 3); t1 scalar or (N,).
+    """Wavefront closest hit: ro, rd (N, 3); t1 scalar or (N,).
 
     Returns (hit (N,) bool, t (N,) f32, tri (N,) int32) matching
-    core/intersect.py's contract. The selection is discrete — callers
-    re-evaluate hit geometry differentiably (integrator does this), so the
-    inputs are detached here: pallas_call has no autodiff rule, and without
+    core/intersect.py's contract. The selection is discrete: callers
+    re-evaluate hit geometry differentiably (the integrator does), so the
+    inputs are detached here. pallas_call has no autodiff rule, and without
     the stop_gradient a grad through the integrator would fail as soon as
-    bounce>0 rays (which carry tangents) reach the kernel.
+    rays that carry tangents (bounce > 0) reach the kernel.
     """
+    check_platform(interpret)
     ro, rd, t1 = jax.lax.stop_gradient((ro, rd, t1))
-    (planes, n, m) = _split_rays(ro, rd)
-    if jnp.ndim(t1) == 0:
-        t1p = jnp.full((m, LANES), t1, jnp.float32)
-    else:
-        pad = m * LANES - n
-        t1p = _plane(jnp.pad(t1, (0, pad)) if pad else t1, m)
-    t_best, tri_best = closest_hit_planes(
-        tri_table, *planes, t1p, t0=float(t0), interpret=interpret
-    )
-    t_flat = t_best.reshape(-1)[:n]
-    tri_flat = tri_best.reshape(-1)[:n]
-    hit = tri_flat >= 0
-    return hit, jnp.where(hit, t_flat, 0.0), tri_flat
+    return _closest(jax.lax.stop_gradient(tri_table), ro, rd, t1,
+                    t0=float(t0), interpret=interpret)
 
 
 def occluded(tri_table, ro, rd, t0, t1, interpret=False):
-    """Any-hit shadow query (t1 per-ray or scalar) — no closest-hit argmin.
-    Inputs detached (see closest_hit)."""
+    """Any-hit shadow query (t1 per ray or scalar); no closest-hit update,
+    and a block stops as soon as all its rays are occluded. Inputs are
+    detached (see closest_hit)."""
+    check_platform(interpret)
     ro, rd, t1 = jax.lax.stop_gradient((ro, rd, t1))
-    (planes, n, m) = _split_rays(ro, rd)
-    if jnp.ndim(t1) == 0:
-        t1p = jnp.full((m, LANES), t1, jnp.float32)
-    else:
-        pad = m * LANES - n
-        t1p = _plane(jnp.pad(t1, (0, pad)) if pad else t1, m)
-    hit = anyhit_planes(tri_table, *planes, t1p, t0=float(t0), interpret=interpret)
-    return hit.reshape(-1)[:n] > 0
+    return _occluded(jax.lax.stop_gradient(tri_table), ro, rd, t1,
+                     t0=float(t0), interpret=interpret)

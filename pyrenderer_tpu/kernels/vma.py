@@ -2,21 +2,18 @@
 
 jax >= 0.9 `shard_map(check_vma=True)` tracks which mesh axes every value
 varies over. `pallas_call` does not infer this: its `out_shape`
-ShapeDtypeStructs must carry an explicit `vma`, and its operands must all
-agree, or tracing fails with "vma on jax.ShapeDtypeStruct must not be
-None". These helpers make every kernel in this package callable both
+ShapeDtypeStructs must carry an explicit `vma`, or tracing fails with "vma on jax.ShapeDtypeStruct must not be
+None". These helpers make the kernel in this package callable both
 standalone (vma-free) and inside a check_vma shard_map (e.g. the dp/sp
 render of dist/render.py, where ray wavefronts vary over the mesh while
 the scene tables are replicated):
 
   - `args_vma(*xs)`: union of the operands' varying axes (empty outside
-    shard_map or on older jax).
-  - `struct(shape, dtype, vma)`: ShapeDtypeStruct carrying that vma when
-    the running jax supports it.
-  - `promote(x, vma)`: cast a replicated operand up to the
-    call's vma (pallas requires operand agreement; promoting a replicated
-    scene table to "varying" is free — no communication, purely a type
-    cast).
+    shard_map).
+  - `struct(shape, dtype, vma)`: ShapeDtypeStruct carrying that vma.
+
+Replicated operands (the scene tables) need no cast: pallas_call accepts
+operands of mixed vma.
 """
 
 from __future__ import annotations
@@ -28,26 +25,10 @@ def args_vma(*xs):
     """Union of the arguments' varying mesh axes (frozenset of axis names)."""
     vma = frozenset()
     for x in xs:
-        aval = jax.typeof(x)
-        vma = vma | frozenset(getattr(aval, "vma", ()) or ())
+        vma = vma | jax.typeof(x).vma
     return vma
 
 
 def struct(shape, dtype, vma):
-    """jax.ShapeDtypeStruct with the given vma (plain struct on older jax)."""
-    try:
-        return jax.ShapeDtypeStruct(shape, dtype, vma=vma)
-    except TypeError:           # jax < 0.9: no vma kwarg, none needed
-        return jax.ShapeDtypeStruct(shape, dtype)
-
-
-def promote(x, vma):
-    """Cast `x` to varying over `vma` (no-op when already covering or
-    outside shard_map)."""
-    missing = tuple(sorted(vma - args_vma(x)))
-    if not missing:
-        return x
-    pcast = getattr(jax.lax, "pcast", None)
-    if pcast is not None:
-        return pcast(x, missing, to="varying")
-    return jax.lax.pvary(x, missing)       # pre-pcast jax
+    """jax.ShapeDtypeStruct with the given vma."""
+    return jax.ShapeDtypeStruct(shape, dtype, vma=vma)

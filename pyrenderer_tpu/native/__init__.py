@@ -25,31 +25,34 @@ _lib_tried = False
 
 
 def _cache_dir() -> str:
+    """Build directory: $PYRENDERER_TPU_CACHE, else `.native_build` at the
+    root of the checkout (listed in .gitignore)."""
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
     d = os.environ.get("PYRENDERER_TPU_CACHE") or os.path.join(
-        os.path.expanduser("~"), ".cache", "pyrenderer_tpu"
-    )
+        root, ".native_build")
     os.makedirs(d, exist_ok=True)
     return d
 
 
-def _compile_src(src: str, lib_name: str) -> Optional[str]:
-    out = os.path.join(_cache_dir(), lib_name)
-    if os.path.exists(out) and os.path.getmtime(out) >= os.path.getmtime(src):
+def _compile() -> Optional[str]:
+    out = os.path.join(_cache_dir(), _LIB_NAME)
+    if os.path.exists(out) and os.path.getmtime(out) >= os.path.getmtime(_SRC):
         return out
+    # build under a private name, then rename: concurrent processes (test
+    # workers) never load a half-written library
+    tmp = f"{out}.{os.getpid()}.tmp"
     try:
         subprocess.run(
-            ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", "-o", out, src],
+            ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", "-o", tmp, _SRC],
             check=True,
             capture_output=True,
             timeout=120,
         )
+        os.replace(tmp, out)
         return out
     except Exception:
         return None
-
-
-def _compile() -> Optional[str]:
-    return _compile_src(_SRC, _LIB_NAME)
 
 
 def load_library():
@@ -107,50 +110,3 @@ def build_sah_bvh_native(tri_min, tri_max, leaf_size: int = 4):
         count=count[:n],
         escape=escape[:n],
     )
-
-
-# ---------------------------------------------------------------------------
-# cluster median-split ordering (cluster_order.cpp)
-# ---------------------------------------------------------------------------
-
-_CO_SRC = os.path.join(os.path.dirname(__file__), "cluster_order.cpp")
-_co_lib = None
-_co_tried = False
-
-
-def load_cluster_order_library():
-    """ctypes lib for the median-split cluster orderer, or None."""
-    global _co_lib, _co_tried
-    if _co_tried:
-        return _co_lib
-    _co_tried = True
-    path = _compile_src(_CO_SRC, "libcluster_order.so")
-    if path is None:
-        return None
-    try:
-        lib = ctypes.CDLL(path)
-        f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
-        i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
-        lib.cluster_median_order.restype = ctypes.c_int32
-        lib.cluster_median_order.argtypes = [
-            f64p, ctypes.c_int64, ctypes.c_int64, i64p,
-        ]
-        _co_lib = lib
-    except Exception:
-        _co_lib = None
-    return _co_lib
-
-
-def cluster_median_order_native(cent, leaf_size: int):
-    """Median-split cluster order via C++ (bit-identical to the Python
-    fallback in accel/clusters._median_split_order). Returns (T,) int64
-    order or None when the native library is unavailable."""
-    lib = load_cluster_order_library()
-    if lib is None:
-        return None
-    cent = np.ascontiguousarray(cent, np.float64)
-    t = cent.shape[0]
-    order = np.empty(t, np.int64)
-    if lib.cluster_median_order(cent, t, int(leaf_size), order) != 0:
-        return None
-    return order

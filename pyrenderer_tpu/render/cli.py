@@ -15,7 +15,7 @@ import sys
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="pyrenderer_tpu",
-        description="TPU-native differentiable path tracer",
+        description="differentiable Monte-Carlo path tracer (JAX)",
     )
     p.add_argument(
         "scene",
@@ -42,16 +42,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--hdr-out", help="output EXR/NPY path")
     p.add_argument(
         "--backend",
-        choices=["auto", "pallas", "matmul", "brute", "bvh", "cluster",
-                 "cluster_binned", "cluster_streamed", "cluster_chunked",
-                 "watertight"],
+        choices=["auto", "pallas", "matmul", "brute", "bvh", "watertight"],
         default="auto",
         help="intersection backend (auto selects by platform and triangle count)",
     )
     p.add_argument(
         "--chunk", type=int, default=1 << 16,
         help="rays per dispatch chunk (default 2^16 = a 256x256 Morton "
-        "screen block, chip-swept optimum — perf/RESULTS.md round 5)",
+        "screen block)",
     )
     p.add_argument(
         "--preview-interval", type=int,
@@ -96,8 +94,11 @@ def main(argv=None) -> int:
 
     import jax
 
+    from pyrenderer_tpu.utils.compile_cache import use_checkout_cache
+
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+    use_checkout_cache()
 
     if args.scene == "analytic":
         return _main_analytic(args)

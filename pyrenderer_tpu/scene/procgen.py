@@ -2,7 +2,7 @@
 
 The reference's only mesh asset is the 12-triangle media/cube.obj (never
 even loaded — SURVEY §0); its benchmark scene is the 36-triangle Cornell
-box. Exercising the cluster accelerator (accel/clusters.py) needs scenes
+box. Exercising the BVH accelerator (accel/bvh.py) needs scenes
 two to four orders of magnitude larger, so this module synthesizes them:
 
   - `terrain(res)` — fractal midpoint-displacement heightfield,

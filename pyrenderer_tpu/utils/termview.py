@@ -2,7 +2,7 @@
 
 The reference shows its progressive render in a `ti.GUI` window
 (reference main_taichi.py:102-127: `gui.set_image(...)` every pass). This
-repo runs headless on TPU hosts, so the live-view equivalent draws the
+repo runs headless on GPU hosts, so the live-view equivalent draws the
 tonemapped accumulation straight into the terminal: each character cell
 is two vertical pixels via the upper-half-block glyph with 24-bit
 foreground (top pixel) and background (bottom pixel) colors — the

@@ -85,8 +85,7 @@ def test_matches_scalar_oracle(camera):
 def test_hilbert_pixel_order():
     """Hilbert order: a true space-filling curve (every cell once,
     consecutive cells screen-adjacent on pow2 squares) and a valid
-    permutation on arbitrary rectangles. Chip-measured within noise of
-    Morton end-to-end (perf/RESULTS.md round 5) — kept selectable via
+    permutation on arbitrary rectangles. Kept selectable via
     core.camera.pixel_order for locality experiments."""
     import numpy as np
 

@@ -102,33 +102,6 @@ def test_geometry_sharded_gradients_match(cornell):
         )
 
 
-def test_geometry_sharded_cluster_accel_matches_brute():
-    """Per-shard ClusterScene traversal (build_shard_clusters) must agree
-    with the brute per-shard intersector on a LARGE (>4096-tri) scene —
-    the composition of the scene-size axis with the device axis."""
-    from pyrenderer_tpu.dist.geometry import build_shard_clusters
-    from pyrenderer_tpu.scene.procgen import big_scene_data
-    from pyrenderer_tpu.scene.tungsten import build_scene
-
-    data = big_scene_data("terrain", res=64)
-    scene, camera, cfg = build_scene(data, dtype=np.float32)
-    scene_j = jax.tree.map(jnp.asarray, scene)
-    camera = camera._replace(resolution=(16, 16))
-    cfg = cfg.replace(max_bounces=2, spp=1, seed=2)
-    px, py = _pixels(camera, n=64)
-    mesh = make_geom_mesh(8, gp=4, dp=2)
-    cs_stack = build_shard_clusters(scene, 4)
-    got = render_field_geometry_sharded(
-        scene_j, camera, cfg, mesh, px, py, cluster_stack=cs_stack
-    )
-    want = render_field_geometry_sharded(scene_j, camera, cfg, mesh, px, py)
-    # same estimator, same RNG; only fp-tie hit faces can differ
-    close = np.isclose(np.asarray(got), np.asarray(want),
-                       rtol=1e-3, atol=1e-4).mean()
-    assert close > 0.99
-    assert np.isfinite(np.asarray(got)).all()
-
-
 def test_train_step_geometry_runs(cornell):
     scene, camera, cfg = cornell
     cfg = cfg.replace(max_bounces=2, spp=2, seed=0)

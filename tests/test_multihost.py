@@ -1,13 +1,12 @@
 """Multi-process (multi-"host") execution tests.
 
 Spawns REAL separate OS processes, each with 4 virtual CPU devices, joined
-by jax.distributed over localhost — the functional stand-in for a
-multi-host TPU slice (ICI within a process's devices, gloo standing in for
-DCN between processes). Checks:
+by jax.distributed over localhost — the functional stand-in for one
+process per GPU (gloo standing in for NCCL between processes). Checks:
 
   1. the 2-process x 4-device assembled image matches a plain
-     single-process render of the same config (the parity check VERDICT r1
-     asked for);
+     single-process render of the same config (the parity check an earlier
+     review asked for);
   2. both processes agree on the image statistic (the allgather really is
      global).
 
@@ -111,9 +110,9 @@ def test_two_process_train_step(tmp_path):
     """Inverse-rendering train steps over a cross-process mesh: the
     scene-parameter gradient allreduce (the shard_map psum transpose)
     rides gloo between the two processes — the BASELINE config-5
-    gradient-over-DCN path. Loss AND per-family gradient statistics must
-    match the single-process values (round-4 VERDICT weak #6: this path
-    previously had no cross-process test)."""
+    cross-process gradient path. Loss AND per-family gradient statistics must
+    match the single-process values (this path previously had no
+    cross-process test)."""
     res2 = _spawn_workers(2, 4, None, train_steps=2)
     # both processes compute identical (replicated) losses and grads
     assert res2[0]["train_losses"] == pytest.approx(res2[1]["train_losses"],

@@ -69,54 +69,3 @@ def test_sah_quality_not_worse():
         return sa.sum()
 
     assert cost(sah) <= cost(lbvh) * 1.1
-
-
-def test_cluster_order_native_matches_python():
-    """The C++ median-split orderer must be bit-identical to the Python
-    recursion (same stable sorts, same round-half-to-even split points) —
-    they are interchangeable build paths for ClusterScene."""
-    import numpy as np
-    from pyrenderer_tpu.native import cluster_median_order_native
-    from pyrenderer_tpu.scene.procgen import terrain
-
-    for res, leaf in [(64, 128), (97, 128), (64, 32)]:
-        verts, faces = terrain(res)
-        v = np.asarray(verts, np.float64)
-        f = np.asarray(faces, np.int64)
-        tri = v[f]
-        cent = 0.5 * (tri.min(axis=1) + tri.max(axis=1))
-
-        native = cluster_median_order_native(cent, leaf)
-        assert native is not None, "native cluster orderer failed to build"
-
-        # the pure-Python recursion, inlined from accel/clusters.py
-        def split(idx):
-            if idx.shape[0] <= leaf:
-                return [idx]
-            c = cent[idx]
-            ax = int(np.argmax(c.max(axis=0) - c.min(axis=0)))
-            idx = idx[np.argsort(c[:, ax], kind="stable")]
-            half = idx.shape[0] // 2
-            half = max(leaf, int(round(half / leaf)) * leaf)
-            return split(idx[:half]) + split(idx[half:])
-
-        py = np.concatenate(split(np.arange(cent.shape[0], dtype=np.int64)))
-        assert np.array_equal(native, py), (res, leaf)
-
-
-def test_build_clusters_uses_native_order(monkeypatch):
-    """build_clusters goes through _median_split_order which prefers the
-    native path; sanity: the built ClusterScene is identical either way."""
-    import numpy as np
-    import jax
-    from pyrenderer_tpu import native
-    from pyrenderer_tpu.accel.clusters import build_clusters
-    from pyrenderer_tpu.scene.procgen import terrain
-
-    verts, faces = terrain(48)
-    cs_native = build_clusters(verts, faces)
-    monkeypatch.setattr(native, "cluster_median_order_native",
-                        lambda cent, leaf: None)
-    cs_python = build_clusters(verts, faces)
-    for a, b in zip(jax.tree.leaves(cs_native), jax.tree.leaves(cs_python)):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))

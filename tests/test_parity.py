@@ -36,14 +36,14 @@ def test_image_parity_f64(cornell64):
     with jax.enable_x64(True):
         scene_j = jax.tree.map(jnp.asarray, scene)
         camera_j = camera._replace(iview=jnp.asarray(camera.iview))
-        img_tpu = np.asarray(render_image(scene_j, camera_j, CFG))
+        img_jax = np.asarray(render_image(scene_j, camera_j, CFG))
     img_ref = ref.render_image(scene, camera, CFG, dtype=np.float64)
 
-    assert img_tpu.shape == img_ref.shape == (16, 16, 3)
-    assert np.isfinite(img_tpu).all()
+    assert img_jax.shape == img_ref.shape == (16, 16, 3)
+    assert np.isfinite(img_jax).all()
     # Non-trivial image: light visible, walls lit
-    assert img_tpu.max() > 0.1
-    np.testing.assert_allclose(img_tpu, img_ref, rtol=1e-9, atol=1e-10)
+    assert img_jax.max() > 0.1
+    np.testing.assert_allclose(img_jax, img_ref, rtol=1e-9, atol=1e-10)
 
 
 def test_image_parity_f32(cornell_path):
@@ -51,10 +51,10 @@ def test_image_parity_f32(cornell_path):
     silhouettes; demand near-total agreement and tight error elsewhere."""
     scene, camera, _ = load_tungsten(cornell_path, dtype=np.float32)
     camera = _small_camera(camera, 16)
-    img_tpu = np.asarray(
+    img_jax = np.asarray(
         render_image(jax.tree.map(jnp.asarray, scene), camera, CFG)
     )
     img_ref = ref.render_image(scene, camera, CFG, dtype=np.float32)
-    close = np.isclose(img_tpu, img_ref, rtol=1e-3, atol=1e-4)
+    close = np.isclose(img_jax, img_ref, rtol=1e-3, atol=1e-4)
     assert close.mean() > 0.95
-    assert np.median(np.abs(img_tpu - img_ref)) < 1e-5
+    assert np.median(np.abs(img_jax - img_ref)) < 1e-5

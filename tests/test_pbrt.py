@@ -38,12 +38,12 @@ def test_pbrt_parity_f64(cornell_path, metal_glass):
     with jax.enable_x64(True):
         scene_j = jax.tree.map(jnp.asarray, scene)
         camera_j = camera._replace(iview=jnp.asarray(camera.iview))
-        img_tpu = np.asarray(render_image(scene_j, camera_j, CFG))
+        img_jax = np.asarray(render_image(scene_j, camera_j, CFG))
     img_ref = ref.render_image(scene, camera, CFG, dtype=np.float64)
-    assert np.isfinite(img_tpu).all()
-    assert img_tpu.max() > 0.05  # nontrivial transport (12x12/2spp can miss
+    assert np.isfinite(img_jax).all()
+    assert img_jax.max() > 0.05  # nontrivial transport (12x12/2spp can miss
     # the small light panel directly; test_pbrt_uses_scene_emission covers it)
-    np.testing.assert_allclose(img_tpu, img_ref, rtol=1e-8, atol=1e-9)
+    np.testing.assert_allclose(img_jax, img_ref, rtol=1e-8, atol=1e-9)
 
 
 def test_pbrt_uses_scene_emission(cornell_path):

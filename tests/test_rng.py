@@ -60,9 +60,8 @@ def test_uniform_streams_decorrelated():
 def test_threefry_reduced_rounds_parity():
     """The round-count knob (PYRENDERER_TF_ROUNDS / rounds=) must keep the
     JAX path and the NumPy oracle bit-identical at non-default counts too
-    (13 = the BigCrush-passing minimum, Salmon et al. SC'11). End-to-end
-    the knob measured inside facility noise (perf/RESULTS.md round 5), so
-    20 stays the default; this pins the parity contract at 13."""
+    (13 = the BigCrush-passing minimum, Salmon et al. SC'11). 20 stays
+    the default; this pins the parity contract at 13."""
     import jax
 
     rs = np.random.RandomState(1)

@@ -122,11 +122,11 @@ def test_validate_scene_gate(cornell_path):
 
 def test_resolve_backend_by_count():
     from pyrenderer_tpu.core.integrator import (
-        AUTO_BRUTE_MAX_TRIS,
+        auto_brute_max_tris,
         resolve_backend,
     )
 
-    small, big = 36, AUTO_BRUTE_MAX_TRIS + 1
+    small, big = 36, auto_brute_max_tris() + 1
     assert resolve_backend("brute", big, False) == "brute"  # explicit wins
     assert resolve_backend("auto", small, False) in ("pallas", "brute")
     # large scene with a prebuilt accelerator -> bvh
@@ -135,18 +135,17 @@ def test_resolve_backend_by_count():
 
 def test_resolve_backend_warns_on_missing_accel():
     """auto + large scene + no accel falls back to O(T) with a loud hint
-    at maybe_build_accel (the (9, T) SMEM operand would otherwise refuse
-    to compile with an opaque error)."""
+    at maybe_build_accel."""
     import warnings
 
     from pyrenderer_tpu.core.integrator import (
-        AUTO_BRUTE_MAX_TRIS,
+        auto_brute_max_tris,
         resolve_backend,
     )
 
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
-        resolve_backend("auto", AUTO_BRUTE_MAX_TRIS + 1, None)
+        resolve_backend("auto", auto_brute_max_tris() + 1, None)
     assert any("maybe_build_accel" in str(w.message) for w in caught)
 
     # no warning when an accel is supplied or the scene is small
